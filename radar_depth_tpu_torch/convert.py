@@ -1,0 +1,67 @@
+"""JAX variables -> the port's state_dict.
+
+The port's module names mirror the flax tree, so conversion is mechanics:
+  params    a/b/kernel (kh,kw,I,O)  -> "a.b.weight" (O,I,kh,kw)
+  params    a/b/scale, a/b/bias     -> "a.b.weight", "a.b.bias"
+  batch_stats a/b/mean, a/b/var     -> "a.b.running_mean", "a.b.running_var"
+The input is the JAX package's ``{params, batch_stats}`` as nested dicts of
+numpy arrays (or anything ``np.asarray`` reads); nothing of JAX is imported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+_LEAF = {("params", "scale"): "weight", ("params", "bias"): "bias",
+         ("batch_stats", "mean"): "running_mean",
+         ("batch_stats", "var"): "running_var"}
+
+
+def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def state_dict_from_jax_variables(
+        variables: Mapping,
+        like: Mapping[str, torch.Tensor] | None = None) -> Dict[str, torch.Tensor]:
+    """{params, batch_stats} -> state_dict of float32 CPU tensors.
+
+    Raises on an unknown leaf and, when ``like`` (the target model's
+    ``state_dict()``) is given, on any missing or extra key and any shape
+    mismatch."""
+    sd: Dict[str, torch.Tensor] = {}
+    for col in ("params", "batch_stats"):
+        for path, w in _flatten(variables.get(col, {})).items():
+            *mods, leaf = path
+            base = ".".join(mods)
+            w = np.asarray(w, dtype=np.float32)
+            if col == "params" and leaf == "kernel":
+                if w.ndim != 4:
+                    raise ValueError(f"{'/'.join(path)}: kernel of rank {w.ndim}")
+                key, w = f"{base}.weight", w.transpose(3, 2, 0, 1)
+            elif (col, leaf) in _LEAF:
+                key = f"{base}.{_LEAF[col, leaf]}"
+            else:
+                raise KeyError(f"unknown {col} leaf {'/'.join(path)}")
+            sd[key] = torch.tensor(w)
+    if like is not None:
+        missing = sorted(set(like) - set(sd))
+        extra = sorted(set(sd) - set(like))
+        if missing or extra:
+            raise KeyError(f"state_dict keys differ: missing {missing[:5]}"
+                           f"{'...' if len(missing) > 5 else ''}, extra "
+                           f"{extra[:5]}{'...' if len(extra) > 5 else ''}")
+        for k, t in like.items():
+            if tuple(t.shape) != tuple(sd[k].shape):
+                raise ValueError(f"{k}: shape {tuple(sd[k].shape)} != "
+                                 f"{tuple(t.shape)}")
+    return sd
