@@ -4,20 +4,37 @@
     python3 chip_smoke.py [--out chiprun_out/chip_smoke.json]
 
 Phases, each printing one JSON line:
-  build      compile both CUDA kernels from csrc/ (one nvcc each, in parallel)
-  device     torch's device name, and nvidia-smi's name and power limit
-  zbuffer    kernel A against its plain version (bit equality) and against
-             scatter_reduce_(amin), at the serving shape (B=8, P=640,
-             450x800), at LiDAR density (B=2, P=40960) and on edge cases
-  epilogue   kernel B against its plain version at every (shape, residual)
-             the flagship gives it at B=8, in bfloat16 and float32
-  serve      the flagship (resnet18_multistage/upproj, 450x800, 5 sweeps,
-             bfloat16, seeded random weights) through Predictor: predict on
-             B=8, 5, 16 and predict_stream over 3 batches, with the kernels'
-             launch counts; float32 parity of the kernel path against the
-             plain path on the card (TF32 off) and against the CPU on a small
-             input; img/s and peak memory
-  profile    device time by kernel category over one B=8 predict call
+  build          compile the three CUDA kernels from csrc/ (one nvcc each, in
+                 parallel)
+  device         torch's device name, and nvidia-smi's name and power limit
+  zbuffer        kernel A against its plain version (bit equality) and against
+                 scatter_reduce_(amin), at the serving shape (B=8, P=640,
+                 450x800), at LiDAR density (B=2, P=40960) and on edge cases
+  zbuffer_sorted kernel C against its plain version and against kernel A on
+                 the same points (bit equality), at radar density (B=8,
+                 P=640) and LiDAR density (B=8, P=40960), and on edge cases;
+                 kernel, plain, sort and scatter_reduce_ times
+  serve          the flagship (resnet18_multistage/upproj, 450x800, 5 sweeps,
+                 bfloat16, seeded random weights) through Predictor: predict on
+                 B=8, 5, 16 and predict_stream over 3 batches, with the kernels'
+                 launch counts; then raster_backend="scatter" (kernel A), whose
+                 predictions must be bit-equal; float32 parity of the kernel
+                 path against the plain path on the card (TF32 off) and
+                 against the CPU on a small input; img/s of both backends and
+                 peak memory
+  epilogue       kernel B against its plain version at every (shape, residual)
+                 the flagship gives it at B=8, in bfloat16 and float32
+  train          the flagship's train step at B=8 on SyntheticNuScenes(seed=0):
+                 10 float32 and 10 bfloat16 steps on a repeated batch (loss
+                 finite and falling), 3 steps with gt_augment="rerasterize",
+                 launch counts per step, img/s and peak memory (and B=32
+                 bfloat16 if it fits); one float32 step of the kernel path
+                 against the plain path on the card (TF32 off) and against the
+                 CPU on a small input
+  eval           make_eval_step on B=8: launch counts, metric sums against
+                 the plain path
+  profile        device time by kernel category over one B=8 predict call
+  profile_train  the same over one B=8 train step, float32 and bfloat16
 Then the kernels' summary line, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line;
 without a card, or without the package beside it, it exits non-zero at once.
@@ -37,6 +54,8 @@ import sys
 import time
 
 B_SERVE = 8
+B_TRAIN = 8
+TRAIN_STEPS = 10
 H, W = 450, 800
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 EPILOGUE_SITES_PER_FORWARD = 84
@@ -44,6 +63,9 @@ FP32_ABS_TOL = 1e-6  # kernel B vs plain, float32
 PARITY_REL_RMSE_TOL = 1e-5  # float32 forward, kernels vs plain, same card
 SMALL_TOL = dict(atol=2e-4, rtol=1e-3)  # card vs CPU, as the CPU parity tests
 BF16_REL_RMSE_TOL = 0.2  # bfloat16 forward vs float32 plain: sanity bound
+SUMS_RTOL = 1e-4  # loss and metric sums, as the CPU parity tests
+UPDATE_TOL = 5e-2  # per-tensor update error, normalized as the CPU tests
+STATS_TOL = dict(atol=1e-5, rtol=1e-4)  # BN running statistics
 
 
 def emit(obj) -> None:
@@ -152,6 +174,94 @@ def phase_zbuffer(torch, dev, batch):
     return results
 
 
+# ------------------------------------------------------------- kernel C
+
+
+def sorted_library(torch, lin_sorted, z_sorted, height, width):
+    """scatter_reduce_(amin) over the sorted points (the sentinel dropped):
+    the yardstick only; the port never calls it."""
+    hw = height * width
+    lin = torch.where(lin_sorted < hw, lin_sorted, -1)
+    return zbuffer_library(torch, lin, z_sorted, height, width)
+
+
+def sort_lin(torch, lin, zf):
+    """(lin with -1 for dropped, z) -> the sorted form kernel C takes."""
+    from radar_depth_tpu_torch.ops import kernels
+
+    key = torch.where(lin >= 0, lin, kernels.SORTED_INVALID)
+    lin_s, order = torch.sort(key, dim=-1, stable=True)
+    return lin_s.contiguous(), torch.gather(zf, -1, order).contiguous()
+
+
+def phase_zbuffer_sorted(torch, dev, batch):
+    from radar_depth_tpu_torch.ops import kernels
+    from radar_depth_tpu_torch.ops.geometry import project_points
+    from radar_depth_tpu_torch.ops.preprocess import _radar_uvz, to_device
+    from radar_depth_tpu_torch.ops.raster import bin_points, sort_points_by_pixel
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    b = to_device({k: v[:B_TRAIN] for k, v in batch.items()}, dev)
+    hw = H * W
+    points = {"radar": _radar_uvz(b)}
+    luv, lz = project_points(b["lidar_points"], b["intrinsics"])
+    points["lidar_density"] = (luv, lz, b["lidar_valid"])
+    cases = {}
+    for name, (uv, z, valid) in points.items():
+        lin_a, zf_a, _ = bin_points(uv, z, valid, H, W, 0.0, 80.0, -1)
+        cases[name] = (lin_a.contiguous(), zf_a.contiguous(), (uv, z, valid))
+    rnd = lambda shape, lo, hi: torch.randint(lo, hi, shape, generator=g,
+                                              device=dev, dtype=torch.int32)
+    depth = lambda shape: torch.rand(shape, generator=g, device=dev) * 80 + 0.01
+    cases["all_invalid"] = (torch.full((2, 640), -1, dtype=torch.int32,
+                                       device=dev),
+                            torch.full((2, 640), float("inf"), device=dev),
+                            None)
+    cases["duplicates"] = (rnd((2, 640), 0, 16) * (hw // 16), depth((2, 640)),
+                           None)
+    cases["one_pixel"] = (torch.full((2, 640), hw - 1, dtype=torch.int32,
+                                     device=dev),
+                          torch.linspace(80, 1, 640, device=dev).repeat(2, 1),
+                          None)
+    cases["ragged_p641"] = (rnd((3, 641), -1, hw), depth((3, 641)), None)
+    cases["one_tile"] = (rnd((2, 4096), 0, 1024), depth((2, 4096)), None)
+    results = {}
+    for name, (lin_a, zf_a, raw) in cases.items():
+        if raw is None:
+            lin_s, z_s = sort_lin(torch, lin_a, zf_a)
+        else:
+            lin_s, z_s = sort_points_by_pixel(*raw, H, W, 0.0, 80.0)
+        got = kernels.zbuffer_min_depth_sorted(lin_s, z_s, H, W)
+        again = kernels.zbuffer_min_depth_sorted(lin_s, z_s, H, W)
+        want = kernels.zbuffer_min_depth_sorted_reference(lin_s, z_s, H, W)
+        kernel_a = kernels.zbuffer_min_depth(lin_a, zf_a, H, W)
+        torch.cuda.synchronize()
+        for other, what in ((again, "a second run"), (want, "plain version"),
+                            (kernel_a, "kernel A")):
+            if not torch.equal(got, other):
+                raise AssertionError(f"zbuffer_sorted {name}: kernel C != "
+                                     f"{what}")
+        r = {"B": lin_s.shape[0], "P": lin_s.shape[1],
+             "kept": int((lin_s < hw).sum()), "bit_equal": True}
+        if raw is not None:
+            r["ms"] = cuda_ms(torch, lambda: kernels.zbuffer_min_depth_sorted(
+                lin_s, z_s, H, W))
+            r["plain_ms"] = cuda_ms(torch, lambda: kernels.
+                                    zbuffer_min_depth_sorted_reference(
+                                        lin_s, z_s, H, W))
+            r["sort_ms"] = cuda_ms(torch, lambda: sort_points_by_pixel(
+                *raw, H, W, 0.0, 80.0))
+            r["library_ms"] = cuda_ms(torch, lambda: sorted_library(
+                torch, lin_s, z_s, H, W))
+            r["kernel_a_ms"] = cuda_ms(torch, lambda: kernels.zbuffer_min_depth(
+                lin_a, zf_a, H, W))
+            nbytes = lin_s.numel() * 8 + lin_s.shape[0] * hw * 4
+            r["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        results[name] = r
+    emit({"phase": "zbuffer_sorted", **results})
+    return results
+
+
 # ------------------------------------------------------------- kernel B
 
 
@@ -235,13 +345,72 @@ def rel_rmse(np, a, b):
     return float(np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b ** 2)))
 
 
+def reset_launches():
+    from radar_depth_tpu_torch.ops import kernels
+
+    for fn in KERNELS.values():
+        getattr(kernels, fn).launches = 0
+
+
+def read_launches():
+    from radar_depth_tpu_torch.ops import kernels
+
+    return {fn: getattr(kernels, fn).launches for fn in KERNELS.values()}
+
+
+KERNELS = {"A": "zbuffer_min_depth", "B": "scale_bias_relu",
+           "C": "zbuffer_min_depth_sorted"}
+
+
+class tf32:
+    """Context: TF32 for cuDNN convolutions and matmuls on or off, restored
+    on exit."""
+
+    def __init__(self, torch, enabled):
+        self.torch, self.enabled = torch, enabled
+
+    def __enter__(self):
+        b = self.torch.backends
+        self.saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32)
+        b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = self.enabled
+
+    def __exit__(self, *exc):
+        b = self.torch.backends
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = self.saved
+
+
+def serve_speed(preds, take, reps=6):
+    """img/s of each Predictor in ``preds`` at B=8 and 16: host clock around
+    whole predict calls (upload, preprocess, forward, fetch; predict returns
+    host arrays, so each call has waited), the Predictors taken in turns,
+    the order reversed every round (ABBA), medians over ``reps`` rounds."""
+    speed = {name: {} for name in preds}
+    names = list(preds)
+    for n in (8, 16):
+        b = take(0, n)
+        times = {name: [] for name in names}
+        for r in range(reps):
+            for name in (names if r % 2 == 0 else names[::-1]):
+                t0 = time.perf_counter()
+                preds[name].predict(b)
+                times[name].append(time.perf_counter() - t0)
+        for name in names:
+            med = statistics.median(times[name])
+            speed[name][f"img_per_s_b{n}"] = n / med
+            speed[name][f"ms_per_call_b{n}"] = med * 1e3
+            speed[name][f"ms_per_call_b{n}_all"] = [t * 1e3
+                                                    for t in times[name]]
+    return speed
+
+
 def phase_serve(torch, np, dev, batch, sd):
     from radar_depth_tpu_torch.config import ServeConfig
     from radar_depth_tpu_torch.inference import Predictor
-    from radar_depth_tpu_torch.ops import kernels
 
     cfg = ServeConfig(arch="resnet18_multistage", decoder="upproj",
                       dtype="bfloat16", height=H, width=W, num_sweeps=5)
+    if cfg.raster_backend != "sorted":
+        raise AssertionError("the serving default is the sorted z-buffer")
     pred = Predictor(cfg, sd, device=dev)
     take = lambda lo, hi: {k: v[lo:hi] for k, v in batch.items()}
     pred.predict(take(0, B_SERVE))  # warm-up: library load, cuDNN set-up
@@ -251,17 +420,17 @@ def phase_serve(torch, np, dev, batch, sd):
                              f"expected {EPILOGUE_SITES_PER_FORWARD}")
 
     # the main path, counted: 3 predict calls (one chunk each) + 3 streamed
-    kernels.zbuffer_min_depth.launches = 0
-    kernels.scale_bias_relu.launches = 0
+    reset_launches()
     outs = {n: pred.predict(take(0, n)) for n in (8, 5, 16)}
     streamed = list(pred.predict_stream(
         iter([take(i, i + B_SERVE) for i in (0, 8, 16)])))
-    launches = {"zbuffer_min_depth": kernels.zbuffer_min_depth.launches,
-                "scale_bias_relu": kernels.scale_bias_relu.launches}
+    launches = read_launches()
     forwards = 6
-    if launches != {"zbuffer_min_depth": forwards,
-                    "scale_bias_relu": EPILOGUE_SITES_PER_FORWARD * forwards}:
-        raise AssertionError(f"launches {launches} over {forwards} forwards")
+    want = {KERNELS["A"]: 0, KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD * forwards,
+            KERNELS["C"]: forwards}
+    if launches != want:
+        raise AssertionError(f"launches {launches} over {forwards} forwards, "
+                             f"expected {want}")
     for n, out in outs.items():
         if out.shape != (n, H, W) or not np.isfinite(out).all():
             raise AssertionError(f"predict B={n}: shape {out.shape} or "
@@ -272,34 +441,41 @@ def phase_serve(torch, np, dev, batch, sd):
     if not np.array_equal(streamed[0], outs[8]):
         raise AssertionError("predict_stream differs from predict")
 
-    # throughput: host clock around whole predict calls (upload, preprocess,
-    # forward, fetch); predict returns host arrays, so each call has waited
-    speed = {}
-    torch.cuda.reset_peak_memory_stats(dev)
-    for n in (8, 16):
-        b = take(0, n)
-        times = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            pred.predict(b)
-            times.append(time.perf_counter() - t0)
-        speed[f"img_per_s_b{n}"] = n / statistics.median(times)
-        speed[f"ms_per_call_b{n}"] = statistics.median(times) * 1e3
-    speed["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     sample = outs[8]
 
+    # the scatter backend (kernel A), counted, and bit-equal predictions
+    pred_sc = Predictor(dataclasses.replace(cfg, raster_backend="scatter"), sd,
+                        device=dev)
+    pred_sc.predict(take(0, B_SERVE))
+    reset_launches()
+    sc = {n: pred_sc.predict(take(0, n)) for n in (8, 16)}
+    launches_scatter = read_launches()
+    want = {KERNELS["A"]: 2, KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD * 2,
+            KERNELS["C"]: 0}
+    if launches_scatter != want:
+        raise AssertionError(f"scatter backend launches {launches_scatter}, "
+                             f"expected {want}")
+    for n in (8, 16):
+        if not np.array_equal(sc[n], outs[n]):
+            raise AssertionError(f"B={n}: raster_backend scatter and sorted "
+                                 "predictions differ")
+    torch.cuda.reset_peak_memory_stats(dev)
+    speed = serve_speed({"sorted": pred, "scatter": pred_sc}, take)
+    speed["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del pred_sc
+
     # float32 parity on the card: kernel path vs plain path, TF32 off
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     b8 = take(0, B_SERVE)
-    k32 = Predictor(cfg32, sd, device=dev).predict(b8)
-    p32 = Predictor(cfg32, sd, device=dev, plain=True).predict(b8)
+    with tf32(torch, False):
+        k32 = Predictor(cfg32, sd, device=dev).predict(b8)
+        p32 = Predictor(cfg32, sd, device=dev, plain=True).predict(b8)
     parity = {"fp32_kernels_vs_plain_max_abs": float(np.abs(k32 - p32).max()),
               "fp32_kernels_vs_plain_rel_rmse": rel_rmse(np, k32, p32),
               "bf16_vs_fp32_plain_max_abs": float(np.abs(sample - p32).max()),
               "bf16_vs_fp32_plain_rel_rmse": rel_rmse(np, sample, p32),
-              "pred_mean_m": float(p32.mean()), "pred_std_m": float(p32.std())}
+              "pred_mean_m": float(p32.mean()), "pred_std_m": float(p32.std()),
+              "scatter_vs_sorted_bit_equal": True}
     if parity["fp32_kernels_vs_plain_rel_rmse"] > PARITY_REL_RMSE_TOL:
         raise AssertionError(f"float32 parity {parity}")
     if parity["bf16_vs_fp32_plain_rel_rmse"] > BF16_REL_RMSE_TOL:
@@ -316,7 +492,8 @@ def phase_serve(torch, np, dev, batch, sd):
     sb = SyntheticNuScenes(2, spec=SampleSpec(height=64, width=96,
                                               num_sweeps=3, lidar_points=2048),
                            seed=4).batch(range(2))
-    on_card = Predictor(small, ssd, device=dev).predict(sb)
+    with tf32(torch, False):
+        on_card = Predictor(small, ssd, device=dev).predict(sb)
     on_cpu = Predictor(small, ssd, device="cpu").predict(sb)
     np.testing.assert_allclose(on_card, on_cpu, **SMALL_TOL)
     parity["small_card_vs_cpu_max_abs"] = float(np.abs(on_card - on_cpu).max())
@@ -324,18 +501,268 @@ def phase_serve(torch, np, dev, batch, sd):
     emit({"phase": "serve", "arch": cfg.arch, "decoder": cfg.decoder,
           "dtype": cfg.dtype, "hw": [H, W], "sweeps": cfg.num_sweeps,
           "forwards": forwards, "launches": launches,
+          "launches_scatter_backend": launches_scatter,
           "launches_per_forward": {k: v / forwards
                                    for k, v in launches.items()},
           **speed, **parity})
-    return launches, speed, parity, pred, sites
+    return launches, launches_scatter, speed, parity, pred, sites
+
+
+# ------------------------------------------------------------- training
+
+
+def train_init(torch, model, seed):
+    """Seeded random weights for training: init_random's convs, BN scale 1
+    and bias 0 (a freshly initialised BN), and the 3x3 heads made positive
+    and scaled up so the first predictions are positive depths of tens of
+    meters (the CPU parity tests start from the same kind of weights)."""
+    from radar_depth_tpu_torch.models import BatchNorm, init_random
+
+    init_random(model, seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        for name, p in model.named_parameters():
+            if name.endswith("conv3.weight"):
+                p.abs_().mul_(50.0)
+    return model
+
+
+def train_config(dtype="float32", height=None, width=None, sweeps=5, **data):
+    from radar_depth_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+
+    return TrainConfig(
+        data=DataConfig(height=height or H, width=width or W,
+                        num_sweeps=sweeps, **data),
+        model=ModelConfig(arch="resnet18_multistage", dtype=dtype),
+        batch_size=B_TRAIN)
+
+
+def train_setup(torch, cfg, device, seed=0, state_dict=None):
+    from radar_depth_tpu_torch.models import create_model
+    from radar_depth_tpu_torch.train.state import create_train_state
+    from radar_depth_tpu_torch.train.step import make_train_step
+
+    model, spec = create_model(
+        cfg.model.arch, device=device,
+        output_size=(cfg.data.height, cfg.data.width),
+        dtype=cfg.model.torch_dtype, param_dtype=torch.float32)
+    if state_dict is None:
+        train_init(torch, model, seed)
+    else:
+        model.load_state_dict(state_dict)
+    state = create_train_state(model, cfg.optim, steps_per_epoch=32)
+    return model, spec, state, make_train_step(model, spec, cfg)
+
+
+def run_steps(torch, dev, step, state, batch, steps, seed=0):
+    """``steps`` train steps on one batch with the same augmentation each
+    time (the generator reseeded), so the loss must fall. Returns the losses
+    and the host-clock seconds of each step (each ends in a fetch of its
+    loss)."""
+    losses, times = [], []
+    gen = torch.Generator(device=dev)
+    for _ in range(steps):
+        gen.manual_seed(seed)
+        t0 = time.perf_counter()
+        sums = step(state, batch, generator=gen)
+        losses.append(float(sums["loss"]))
+        times.append(time.perf_counter() - t0)
+    return losses, times
+
+
+def param_snapshot(model):
+    return {k: v.detach().double().cpu() for k, v in model.named_parameters()}
+
+
+def stats_snapshot(model):
+    return {k: v.detach().double().cpu() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def compare_steps(np, before, got_model, want_model, got_sums,
+                  want_sums, what):
+    """One train step of two runs from the same weights: sums within
+    SUMS_RTOL, per-tensor updates within UPDATE_TOL (normalized by the
+    tensor's norm plus sqrt(n) times the RMS over all updates, as
+    tests/test_torch_train.py does), running statistics within STATS_TOL.
+    Returns the largest errors."""
+    sums_err = max(abs(float(got_sums[k]) - float(want_sums[k]))
+                   / max(abs(float(want_sums[k])), 1e-30) for k in want_sums)
+    if sums_err > SUMS_RTOL:
+        raise AssertionError(f"{what}: sums differ by {sums_err:.2e}")
+    got = {k: v - before[k] for k, v in param_snapshot(got_model).items()}
+    want = {k: v - before[k] for k, v in param_snapshot(want_model).items()}
+    rms = math.sqrt(sum(float((w * w).sum()) for w in want.values())
+                    / sum(w.numel() for w in want.values()))
+    upd_err = max(float((got[k] - w).norm())
+                  / (float(w.norm()) + math.sqrt(w.numel()) * rms)
+                  for k, w in want.items())
+    glob = math.sqrt(sum(float(((got[k] - w) ** 2).sum())
+                         for k, w in want.items())
+                     / sum(float((w * w).sum()) for w in want.values()))
+    if upd_err > UPDATE_TOL:
+        raise AssertionError(f"{what}: updates differ by {upd_err:.2e}")
+    gs, ws = stats_snapshot(got_model), stats_snapshot(want_model)
+    stats_err = 0.0
+    for k, w in ws.items():
+        np.testing.assert_allclose(gs[k].numpy(), w.numpy(), err_msg=k,
+                                   **STATS_TOL)
+        stats_err = max(stats_err, float((gs[k] - w).abs().max()))
+    return {"sums_max_rel": sums_err, "update_max_err": upd_err,
+            "update_global_rel": glob, "stats_max_abs": stats_err}
+
+
+def phase_train(torch, np, dev, batch):
+    from radar_depth_tpu_torch.data import SampleSpec, SyntheticNuScenes
+    from radar_depth_tpu_torch.ops.augment import AugmentConfig, sample_affine_params
+
+    take = lambda lo, hi: {k: v[lo:hi] for k, v in batch.items()}
+    b8 = take(0, B_TRAIN)
+    out = {"batch": B_TRAIN, "steps": TRAIN_STEPS, "tf32": False}
+    launches, trained = {}, {}
+    with tf32(torch, False):
+        for dtype in ("float32", "bfloat16"):
+            cfg = train_config(dtype)
+            model, spec, state, step = train_setup(torch, cfg, dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launches()
+            losses, times = run_steps(torch, dev, step, state, b8, TRAIN_STEPS)
+            launches[dtype] = read_launches()
+            want = {KERNELS["A"]: 0, KERNELS["B"]: 0,
+                    KERNELS["C"]: TRAIN_STEPS}
+            if launches[dtype] != want:
+                raise AssertionError(f"train {dtype}: launches "
+                                     f"{launches[dtype]}, expected {want}")
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"train {dtype}: losses {losses}")
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"train {dtype}: loss did not fall "
+                                     f"{losses}")
+            out[dtype] = {
+                "losses": losses, "step_ms": [t * 1e3 for t in times],
+                "img_per_s": B_TRAIN / statistics.median(times[1:]),
+                "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+            trained[dtype] = (model, spec, state, step)
+
+        # gt_augment="rerasterize": the LiDAR GT goes through kernel C too
+        cfg = train_config("float32", gt_augment="rerasterize")
+        model, spec, state, step = train_setup(torch, cfg, dev)
+        reset_launches()
+        losses, _ = run_steps(torch, dev, step, state, b8, 3)
+        launches["rerasterize"] = read_launches()
+        want = {KERNELS["A"]: 0, KERNELS["B"]: 0, KERNELS["C"]: 6}
+        if launches["rerasterize"] != want:
+            raise AssertionError(f"rerasterize launches "
+                                 f"{launches['rerasterize']}, expected {want}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"rerasterize losses {losses}")
+        out["rerasterize"] = {"losses": losses}
+        del model, state, step
+
+        # kernel path against the plain path on the card, one float32 step
+        cfg = train_config("float32")
+        sd = train_init(torch, train_setup(torch, cfg, "cpu")[0], 1).state_dict()
+        from radar_depth_tpu_torch.train.step import make_train_step
+
+        runs = {}
+        for plain in (False, True):
+            model, spec, state, _ = train_setup(torch, cfg, dev,
+                                                state_dict=sd)
+            step = make_train_step(model, spec, cfg, plain=plain)
+            gen = torch.Generator(device=dev).manual_seed(3)
+            runs[plain] = (model, step(state, b8, generator=gen))
+        before = {k: v.double() for k, v in sd.items()}
+        out["kernels_vs_plain"] = compare_steps(
+            np, before, runs[False][0], runs[True][0], runs[False][1],
+            runs[True][1], "train kernels vs plain")
+        del runs
+
+        # small input: the card's kernel path against the CPU's plain path
+        small = train_config("float32", height=64, width=96, sweeps=3)
+        sb = SyntheticNuScenes(2, spec=SampleSpec(height=64, width=96,
+                                                  num_sweeps=3,
+                                                  lidar_points=2048),
+                               seed=4).batch(range(2))
+        sd = train_init(torch, train_setup(torch, small, "cpu")[0],
+                        2).state_dict()
+        aug = sample_affine_params(torch.Generator().manual_seed(4),
+                                   AugmentConfig(), 2)
+        runs = {}
+        for device in (dev, "cpu"):
+            with torch.backends.mkldnn.flags(enabled=False):
+                model, _, state, step = train_setup(torch, small, device,
+                                                    state_dict=sd)
+                runs[str(device)] = (model, step(state, sb, aug_params=aug))
+        before = {k: v.double() for k, v in sd.items()}
+        out["small_card_vs_cpu"] = compare_steps(
+            np, before, runs[str(dev)][0], runs["cpu"][0],
+            runs[str(dev)][1], runs["cpu"][1], "train card vs CPU")
+        del runs
+
+    # B=32 in bfloat16, if it fits (TF32 does not apply to bfloat16)
+    b32 = {k: np.concatenate([v, v[:32 - len(v)]]) for k, v in batch.items()}
+    try:
+        model, spec, state, step = train_setup(torch, train_config("bfloat16"),
+                                               dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, times = run_steps(torch, dev, step, state, b32, 4)
+        out["bfloat16_b32"] = {
+            "fits": True, "losses": losses,
+            "img_per_s": 32 / statistics.median(times[1:]),
+            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    except torch.cuda.OutOfMemoryError as e:
+        out["bfloat16_b32"] = {"fits": False, "error": str(e)[:200]}
+    model = state = step = None
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "launches": launches, **out})
+    return out, launches, trained
+
+
+def phase_eval(torch, np, dev, batch, trained):
+    from radar_depth_tpu_torch.train.step import make_eval_step
+
+    model, spec, _, _ = trained["float32"]
+    cfg = train_config("float32")
+    b8 = {k: v[:B_TRAIN] for k, v in batch.items()}
+    eval_step = make_eval_step(model, spec, cfg)
+    with tf32(torch, False):
+        eval_step(b8)  # warm-up
+        reset_launches()
+        got = eval_step(b8)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = make_eval_step(model, spec, cfg, plain=True)(b8)
+    expect = {KERNELS["A"]: 0, KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD,
+              KERNELS["C"]: 1}
+    if launches != expect:
+        raise AssertionError(f"eval launches {launches}, expected {expect}")
+    got = {k: float(v) for k, v in got.items()}
+    want = {k: float(v) for k, v in want.items()}
+    if not all(math.isfinite(v) for v in got.values()):
+        raise AssertionError(f"eval sums {got}")
+    err = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in want)
+    if err > SUMS_RTOL:
+        raise AssertionError(f"eval sums differ from the plain path by {err}")
+    out = {"phase": "eval", "launches": launches, "sums": got,
+           "plain_sums_max_rel": err, "bit_equal": got == want}
+    emit(out)
+    return out
 
 
 def _category(name: str) -> str:
     n = name.lower()
     if "sbr_" in n:
         return "kernel_B_epilogue"
+    if "zbs_" in n:
+        return "kernel_C_zbuffer_sorted"
     if "zb_" in n:
         return "kernel_A_zbuffer"
+    if "foreach" in n:
+        return "optimizer"
     if "memcpy" in n or "memset" in n:
         return "memcpy"
     if any(k in n for k in ("conv", "xmma", "cudnn", "sm90", "sm80", "gemm",
@@ -344,21 +771,26 @@ def _category(name: str) -> str:
     return "other"
 
 
-def phase_profile(torch, pred, batch):
-    """Device time by kernel category over one B=8 predict call
-    (torch.profiler, CUPTI), against the call's host-clock wall time."""
+def profile_device(torch, fn, name, batch_size):
+    """Device time by kernel category over one call of ``fn`` (torch.profiler,
+    CUPTI), against the call's host-clock wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pred.predict(batch)
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.predict(batch)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     cats, kernels_by_name, launches = {}, {}, 0
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # user annotations (Optimizer.step's range) span kernels counted
+        # on their own
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -368,12 +800,33 @@ def phase_profile(torch, pred, batch):
         launches += e.count
     busy = sum(cats.values())
     top = sorted(kernels_by_name.items(), key=lambda kv: -kv[1])[:8]
-    out = {"phase": "profile", "batch": next(iter(batch.values())).shape[0],
+    out = {"phase": name, "batch": batch_size,
            "wall_ms": wall_ms, "device_busy_ms": busy,
            "device_idle_share": (1 - busy / wall_ms) if busy else None,
            "device_ms_by_category": cats, "device_events": launches,
            "top_kernels_ms": top}
     emit(out)
+    return out
+
+
+def phase_profile(torch, pred, batch):
+    return profile_device(torch, lambda: pred.predict(batch), "profile",
+                          next(iter(batch.values())).shape[0])
+
+
+def phase_profile_train(torch, dev, trained, batch):
+    """One B=8 train step of each dtype (float32 with TF32 off)."""
+    b8 = {k: v[:B_TRAIN] for k, v in batch.items()}
+    gen = torch.Generator(device=dev)
+    out = {}
+    for dtype, (_, _, state, step) in trained.items():
+        def one_step():
+            gen.manual_seed(0)
+            step(state, b8, generator=gen)
+
+        with tf32(torch, False):
+            out[dtype] = profile_device(torch, one_step,
+                                        f"profile_train_{dtype}", B_TRAIN)
     return out
 
 
@@ -422,40 +875,59 @@ def main(argv=None) -> int:
           "samples": 24, "weights_seed": 0})
 
     zb = phase_zbuffer(torch, dev, batch)
-    launches, speed, parity, pred, sites = phase_serve(torch, np, dev, batch,
-                                                       sd)
+    zbs = phase_zbuffer_sorted(torch, dev, batch)
+    launches, launches_sc, speed, parity, pred, sites = phase_serve(
+        torch, np, dev, batch, sd)
     epi, epi_err = phase_epilogue(torch, dev, sites)
     prof = phase_profile(torch, pred, {k: v[:B_SERVE]
                                        for k, v in batch.items()})
+    del pred
+    train, train_launches, trained = phase_train(torch, np, dev, batch)
+    ev = phase_eval(torch, np, dev, batch, trained)
+    prof_train = phase_profile_train(torch, dev, trained, batch)
 
     stem = next(r for r in epi if r["dtype"] == "bfloat16"
                 and not r["residual"] and r["shape_nchw"][1] == 64
                 and r["shape_nchw"][2] == (H + 1) // 2)
     serve = zb["serve_radar"]
+    radar = zbs["radar"]
     summary = {"kernels": [
         {"name": "zbuffer_min_depth", "route": "cuda",
          "source": "radar_depth_tpu_torch/csrc/zbuffer.cu",
          "replaces": "radar_depth_tpu/ops/pallas_kernels.py:71",
-         "launches": launches["zbuffer_min_depth"], "max_abs_err": 0.0,
+         "launches": launches_sc[KERNELS["A"]], "max_abs_err": 0.0,
          "ms": serve["ms"], "plain_ms": serve["plain_ms"],
          "bound_ms": serve["bound_ms"], "bound_by": "bytes",
          "library_ms": serve["library_ms"]},
         {"name": "scale_bias_relu", "route": "cuda",
          "source": "radar_depth_tpu_torch/csrc/epilogue.cu",
          "replaces": "radar_depth_tpu/ops/pallas_kernels.py:251",
-         "launches": launches["scale_bias_relu"],
+         "launches": launches[KERNELS["B"]],
          "max_abs_err": max(epi_err.values()),
          "ms": stem["ms"], "plain_ms": stem["plain_ms"],
          "bound_ms": stem["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
+        {"name": "zbuffer_min_depth_sorted", "route": "cuda",
+         "source": "radar_depth_tpu_torch/csrc/zbuffer_sorted.cu",
+         "replaces": "radar_depth_tpu/ops/pallas_kernels.py:176",
+         "launches": train_launches["float32"][KERNELS["C"]],
+         "max_abs_err": 0.0,
+         "ms": radar["ms"], "plain_ms": radar["plain_ms"],
+         "bound_ms": radar["bound_ms"], "bound_by": "bytes",
+         "library_ms": radar["library_ms"]},
     ]}
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"device": {"torch_name": kind, "nvidia_smi": smi},
-                       "zbuffer": zb, "epilogue": epi, "speed": speed,
-                       "parity": parity, "launches": launches,
-                       "profile": prof,
+                       "zbuffer": zb, "zbuffer_sorted": zbs, "epilogue": epi,
+                       "speed": speed, "parity": parity,
+                       "launches": {"serve": launches,
+                                    "serve_scatter": launches_sc,
+                                    "train": train_launches,
+                                    "eval": ev["launches"]},
+                       "train": train, "eval": ev, "profile": prof,
+                       "profile_train": prof_train,
                        "summary": summary}, f, indent=1)
     emit(summary)
     print(smi, flush=True)

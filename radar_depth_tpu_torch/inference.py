@@ -7,7 +7,8 @@ same power-of-two tiling, ``predict_stream``):
     p = Predictor(cfg, state_dict)      # device="cuda" unless told otherwise
     depth = p.predict(batch)            # (B, H, W) meters, numpy
 
-The path per chunk: ``prepare_eval_batch`` (kernel A z-buffer) ->
+The path per chunk: ``prepare_eval_batch`` (z-buffer: sort + kernel C, or
+kernel A with ``raster_backend="scatter"``) ->
 ``pack_model_inputs`` -> the model forward (kernel B at every BN->ReLU) ->
 ``pred[..., 0]``. PyTorch launches asynchronously; the copy of the result to
 the host is the only wait.
@@ -46,7 +47,7 @@ class Predictor:
     """Depth predictor over a state_dict (``convert.
     state_dict_from_jax_variables`` carries a JAX run's variables across).
 
-    ``plain=True`` runs both kernels' plain PyTorch versions, on any device:
+    ``plain=True`` runs the kernels' plain PyTorch versions, on any device:
     the reference that a kernel run on the card is held against."""
 
     def __init__(self, cfg: ServeConfig, state_dict: Mapping,
@@ -62,7 +63,8 @@ class Predictor:
         self.model.load_state_dict(state_dict)
         use_plain_kernels(self.model, plain)
         self._pre = PreprocessConfig(spec=spec,
-                                     height_extension=cfg.height_extension)
+                                     height_extension=cfg.height_extension,
+                                     raster_backend=cfg.raster_backend)
 
     @torch.inference_mode()
     def infer(self, batch: Dict) -> torch.Tensor:

@@ -1,0 +1,145 @@
+"""Depth metrics on the device, mirroring ``radar_depth_tpu/metrics/
+__init__.py`` (the reference's Result / AverageMeter).
+
+Metrics are a flat dict of (at least) float32 sums plus the count needed to
+finish the averages, so batches add up on the device and the divide happens
+once on the host (``finalize_metrics``). Over the target > 0 mask: irmse, imae
+(1/km), mse, rmse, mae (m), absrel, lg10, delta < 1.25 / 1.25^2 / 1.25^3.
+
+Conventions: "batch" is the reference's AverageMeter weighting (all valid
+pixels of the batch pooled into one value, weighted by the number of
+samples with a valid pixel); "sample" averages per-sample pixel means.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+METRIC_FIELDS = (
+    "irmse", "imae", "mse", "rmse", "mae", "absrel", "lg10",
+    "delta1", "delta2", "delta3",
+)
+CSV_FIELDS = ("mse", "rmse", "absrel", "lg10", "mae",
+              "delta1", "delta2", "delta3", "data_time", "gpu_time")
+
+
+def _per_sample_mean(x: torch.Tensor, mask: torch.Tensor):
+    """Mean over valid pixels per sample: (N, ...) -> (N,), 0 where empty;
+    and the per-sample valid counts."""
+    axes = tuple(range(1, x.dim()))
+    total = torch.where(mask, x, torch.zeros((), device=x.device)).sum(axes)
+    count = mask.sum(axes)
+    mean = torch.where(count > 0, total / count.clamp_min(1),
+                       torch.zeros((), device=x.device))
+    return mean, count
+
+
+def _pooled_mean_fn(valid: torch.Tensor):
+    """Mean over every valid pixel of the batch."""
+    count = valid.sum()
+
+    def mean(x):
+        total = torch.where(valid, x, torch.zeros((), device=x.device)).sum()
+        return torch.where(count > 0, total / count.clamp_min(1),
+                           torch.zeros((), device=x.device))
+
+    return mean
+
+
+def compute_metric_sums(pred: torch.Tensor, target: torch.Tensor,
+                        convention: str = "sample") -> Dict[str, torch.Tensor]:
+    """One batch -> dict of scalar sums and "count" (finish with
+    ``finalize_metrics``: metric = sum / count).
+
+    "sample": per-sample pixel means summed over the samples that have a
+    valid pixel; count = those samples. "batch": the batch-pooled value times
+    n, count = n, where n is the number of samples with a valid pixel (an
+    all-invalid padding sample counts for nothing in either).
+    """
+    dtype = torch.promote_types(pred.dtype, torch.float32)
+    pred = pred.to(dtype)
+    target = target.to(dtype)
+    valid = target > 0
+    safe_pred = pred.clamp_min(1e-6)  # guards log/division; masked anyway
+    safe_target = torch.where(valid, target, torch.ones((), device=pred.device))
+
+    if convention == "batch":
+        pooled = _pooled_mean_fn(valid)
+
+        def per_mean(x):
+            return pooled(x), None
+    elif convention == "sample":
+        def per_mean(x):
+            return _per_sample_mean(x, valid)
+    else:
+        raise ValueError(f"unknown metric convention {convention!r}")
+
+    abs_diff = (pred - target).abs()
+    per = {}
+    per["mse"], count = per_mean(torch.square(pred - target))
+    per["mae"], _ = per_mean(abs_diff)
+    per["absrel"], _ = per_mean(abs_diff / safe_target)
+    per["lg10"], _ = per_mean(
+        (torch.log10(safe_pred) - torch.log10(safe_target)).abs())
+    max_ratio = torch.maximum(safe_pred / safe_target, safe_target / safe_pred)
+    for i in (1, 2, 3):
+        per[f"delta{i}"], _ = per_mean((max_ratio < 1.25 ** i).to(dtype))
+    # inverse metrics in 1/km: a 10 m return is 100 km^-1
+    inv_pred = 1.0 / (1e-3 * safe_pred)
+    inv_target = 1.0 / (1e-3 * safe_target)
+    per["imse"], _ = per_mean(torch.square(inv_pred - inv_target))
+    per["imae"], _ = per_mean((inv_pred - inv_target).abs())
+    # sqrt at the granularity of one evaluation: per sample or per batch
+    per["rmse"] = torch.sqrt(per["mse"])
+    per["irmse"] = torch.sqrt(per.pop("imse"))
+
+    if convention == "batch":
+        n = valid.flatten(1).any(dim=1).to(dtype).sum()
+        sums = {name: val * n for name, val in per.items()}
+        sums["count"] = n
+        return sums
+    has_valid = (count > 0).to(dtype)
+    sums = {name: (val * has_valid).sum() for name, val in per.items()}
+    sums["count"] = has_valid.sum()
+    return sums
+
+
+def zeros_metric_sums(device: str | torch.device = "cpu"
+                      ) -> Dict[str, torch.Tensor]:
+    out = {k: torch.zeros((), device=device) for k in METRIC_FIELDS}
+    out["count"] = torch.zeros((), device=device)
+    return out
+
+
+def accumulate_metric_sums(acc: Dict, new: Dict) -> Dict:
+    """AverageMeter.update equivalent: running sums add."""
+    return {k: acc[k] + new[k] for k in acc}
+
+
+def finalize_metrics(sums: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Host-side finish: each sum divided by the sample count."""
+    count = float(sums["count"])
+    out = {k: float(sums[k]) / count if count > 0 else 0.0
+           for k in METRIC_FIELDS}
+    out["count"] = count
+    return out
+
+
+@dataclasses.dataclass
+class AverageMeter:
+    """Host-side running average for wall-clock fields (data_time,
+    gpu_time), the reference AverageMeter's contract."""
+
+    total: float = 0.0
+    count: float = 0.0
+
+    def update(self, value: float, n: int = 1) -> None:
+        self.total += float(value) * n
+        self.count += n
+
+    @property
+    def average(self) -> float:
+        return self.total / self.count if self.count else 0.0

@@ -62,7 +62,11 @@ def create_model(arch: str, device: str | torch.device | None = None,
                  **kwargs):
     """Build a model by registry name on ``device`` (the card unless
     ``device="cpu"``), in eval mode, with uninitialised weights (load a
-    state_dict or call ``init_random``). Returns (module, spec)."""
+    state_dict or call ``init_random``). Returns (module, spec).
+
+    ``dtype`` is the compute dtype; ``param_dtype`` (default: ``dtype``) the
+    dtype the conv weights are held in: training in bfloat16 keeps float32
+    weights and casts them per call, serving casts them once at load."""
     if arch not in ARCH_REGISTRY:
         raise KeyError(f"arch {arch!r} is not ported; have "
                        f"{sorted(ARCH_REGISTRY)}")

@@ -18,13 +18,14 @@ NUM_LAYERS = 4
 
 class UpProjBlock(nn.Module):
     """Laina up-projection: unpool, then {5x5-BN-ReLU-3x3-BN} + {5x5-BN},
-    add, ReLU. ``branch1_bn1``+ReLU and ``relu(branch1_bn2(.) + branch2_bn(.))``
-    are kernel B; ``branch2_bn`` is a plain BN computed first."""
+    add, ReLU. In eval mode ``branch1_bn1``+ReLU and ``relu(branch1_bn2(.) +
+    branch2_bn(.))`` are kernel B; ``branch2_bn`` is a plain BN computed
+    first."""
 
     def __init__(self, cin: int, features: int, dtype=torch.float32,
-                 device=None):
+                 param_dtype=None, device=None):
         super().__init__()
-        conv = dict(dtype=dtype, device=device)
+        conv = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.branch1_conv1 = UnpoolConv(cin, features, 5, **conv)
         self.branch1_bn1 = make_norm(features, device)
         self.branch1_conv2 = Conv2d(features, features, 3, 1, 1, **conv)
@@ -43,14 +44,15 @@ class Decoder(nn.Module):
     """Four up-blocks, each doubling the resolution and halving channels."""
 
     def __init__(self, kind: str = "upproj", in_channels: int = 256,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         if kind not in DECODER_KINDS:
             raise ValueError(f"decoder {kind!r} is not ported; have "
                              f"{DECODER_KINDS}")
         c = in_channels
         for i in range(NUM_LAYERS):
-            setattr(self, f"layer{i + 1}", UpProjBlock(c, c // 2, dtype, device))
+            setattr(self, f"layer{i + 1}", UpProjBlock(c, c // 2, dtype,
+                                                       param_dtype, device))
             c //= 2
         self.out_channels = c
 

@@ -15,14 +15,14 @@ WIDTH = 64  # stem width of both branches, as the reference builds them
 
 
 class BasicBlock(nn.Module):
-    """3x3-BN-ReLU-3x3-BN + identity/1x1 shortcut, ReLU. Both BN->ReLU sites
-    are kernel B; the second takes the shortcut as its residual (a
-    ``downsample_bn`` shortcut is a plain BN, computed first)."""
+    """3x3-BN-ReLU-3x3-BN + identity/1x1 shortcut, ReLU. In eval mode both
+    BN->ReLU sites are kernel B; the second takes the shortcut as its
+    residual (a ``downsample_bn`` shortcut is a plain BN, computed first)."""
 
     def __init__(self, cin: int, features: int, stride: int = 1,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
-        conv = dict(dtype=dtype, device=device)
+        conv = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.conv1 = Conv2d(cin, features, 3, stride, 1, **conv)
         self.bn1 = make_norm(features, device)
         self.conv2 = Conv2d(features, features, 3, 1, 1, **conv)
@@ -45,14 +45,14 @@ class ResNetEncoder(nn.Module):
     are the same pieces as in the JAX encoder."""
 
     def __init__(self, depth: int = 18, in_channels: int = 3,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         if depth not in STAGE_SIZES:
             raise ValueError(f"ResNet depth {depth} is not ported; have "
                              f"{sorted(STAGE_SIZES)}")
         self.in_channels = in_channels
         self.conv1 = Conv2d(in_channels, WIDTH, 7, 2, 3, dtype=dtype,
-                            device=device)
+                            param_dtype=param_dtype, device=device)
         self.bn1 = make_norm(WIDTH, device)
         self.block_names = []
         cin = WIDTH
@@ -62,7 +62,7 @@ class ResNetEncoder(nn.Module):
                 stride = 2 if (stage > 0 and block == 0) else 1
                 name = f"layer{stage + 1}_{block}"
                 setattr(self, name, BasicBlock(cin, features, stride, dtype,
-                                               device))
+                                               param_dtype, device))
                 self.block_names.append(name)
                 cin = features
         self.out_channels = cin
@@ -74,7 +74,8 @@ class ResNetEncoder(nn.Module):
         return self.conv1(x)
 
     def stem_finish(self, y: torch.Tensor) -> torch.Tensor:
-        """BN + ReLU on the stem conv output (pre-pool): kernel B."""
+        """BN + ReLU on the stem conv output (pre-pool); kernel B in eval
+        mode."""
         return self.bn1(y, relu=True)
 
     def body(self, p: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,61 @@
+"""Masked depth losses, mirroring ``radar_depth_tpu/objectives/__init__.py``
+(the reference's MaskedL1Loss / MaskedMSELoss): mask = target > 0, mean over
+the valid pixels only, 0 for an empty mask. Reductions run in (at least)
+float32 whatever the prediction's dtype."""
+
+from __future__ import annotations
+
+import torch
+
+
+def _masked_mean(err: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    err = err.to(torch.promote_types(err.dtype, torch.float32))
+    mask = mask.to(err.dtype)
+    total = (err * mask).sum()
+    count = mask.sum()
+    return torch.where(count > 0, total / count.clamp_min(1.0),
+                       torch.zeros((), dtype=err.dtype, device=err.device))
+
+
+def masked_l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean |pred - target| over target > 0."""
+    return _masked_mean((pred - target).abs(), target > 0)
+
+
+def masked_mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean (pred - target)^2 over target > 0."""
+    diff = pred - target
+    return _masked_mean(diff * diff, target > 0)
+
+
+LOSSES = {"l1": masked_l1_loss, "l2": masked_mse_loss}
+
+
+def get_loss(name: str):
+    """Resolve a criterion name ("l1" | "l2")."""
+    if name not in LOSSES:
+        raise KeyError(f"unknown criterion {name!r}; have {sorted(LOSSES)}")
+    return LOSSES[name]
+
+
+def multistage_loss(preds, target: torch.Tensor, criterion: str = "l1",
+                    stage_weights=(1.0, 1.0)) -> torch.Tensor:
+    """Weighted sum of the per-stage masked losses over (coarse, refined)."""
+    fn = get_loss(criterion)
+    total = 0.0
+    for w, p in zip(stage_weights, preds):
+        total = total + w * fn(p, target)
+    return total
+
+
+def multistage_uncertainty_loss(preds, log_var: torch.Tensor,
+                                target: torch.Tensor,
+                                criterion: str = "l1") -> torch.Tensor:
+    """Sum over stages of exp(-s_i) * loss_i + s_i, with learned per-stage
+    log-variances s (homoscedastic weighting)."""
+    fn = get_loss(criterion)
+    total = 0.0
+    for i, p in enumerate(preds):
+        s = log_var[i].float()
+        total = total + torch.exp(-s) * fn(p, target) + s
+    return total

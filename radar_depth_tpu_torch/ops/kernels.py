@@ -7,6 +7,9 @@ counters and build loader.
 * Kernel B, ``scale_bias_relu`` (``csrc/epilogue.cu``): the eval-mode BN
   epilogue ``relu(x*scale + bias (+ residual))``. Replaces ``radar_depth_tpu/
   ops/pallas_kernels.py::fused_scale_bias_relu``.
+* Kernel C, ``zbuffer_min_depth_sorted`` (``csrc/zbuffer_sorted.cu``): the
+  min-depth z-buffer over points sorted by pixel. Replaces ``radar_depth_tpu/
+  ops/pallas_kernels.py::rasterize_min_depth_pallas_sorted``.
 
 Each wrapper checks its arguments, then runs the plain version for a tensor
 on the CPU and launches the CUDA kernel for a tensor on the card; there is no
@@ -34,7 +37,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = {"zbuffer": "zbuffer.cu", "epilogue": "epilogue.cu"}
+SOURCES = {"zbuffer": "zbuffer.cu", "epilogue": "epilogue.cu",
+           "zbuffer_sorted": "zbuffer_sorted.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -96,13 +100,15 @@ def _library(name: str) -> ctypes.CDLL:
         build((name,))
         lib = ctypes.CDLL(str(library_path(name)))
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        if name == "zbuffer":
-            lib.rdt_zbuffer_min_depth.argtypes = [vp, vp, vp, ci, ci, ci, vp]
-            lib.rdt_zbuffer_min_depth.restype = ci
-        else:
-            lib.rdt_scale_bias_relu.argtypes = [vp, vp, vp, vp, vp, cll, ci,
-                                                ci, vp]
-            lib.rdt_scale_bias_relu.restype = ci
+        zbuffer_args = [vp, vp, vp, ci, ci, ci, vp]
+        fn, args = {
+            "zbuffer": ("rdt_zbuffer_min_depth", zbuffer_args),
+            "zbuffer_sorted": ("rdt_zbuffer_min_depth_sorted", zbuffer_args),
+            "epilogue": ("rdt_scale_bias_relu",
+                         [vp, vp, vp, vp, vp, cll, ci, ci, vp]),
+        }[name]
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = ci
         _LIBS[name] = lib
     return _LIBS[name]
 
@@ -179,6 +185,57 @@ def zbuffer_min_depth(lin: torch.Tensor, zf: torch.Tensor, height: int,
 
 
 zbuffer_min_depth.launches = 0
+
+
+# ------------------------------------------------ kernel C: sorted z-buffer
+
+SORTED_INVALID = 1 << 30  # sentinel pixel index of a dropped point
+_GRID_Y_MAX = 65535
+
+
+def zbuffer_min_depth_sorted_reference(lin_sorted: torch.Tensor,
+                                       z_sorted: torch.Tensor, height: int,
+                                       width: int) -> torch.Tensor:
+    """Plain version of kernel C. The map is the same function of the points
+    as kernel A's, whatever their order, so this is kernel A's plain version:
+    the sentinel lies outside the image and is dropped like -1."""
+    return zbuffer_min_depth_reference(lin_sorted, z_sorted, height, width)
+
+
+def zbuffer_min_depth_sorted(lin_sorted: torch.Tensor, z_sorted: torch.Tensor,
+                             height: int, width: int) -> torch.Tensor:
+    """(B, P) int32 linear pixel indices, ascending along each row, with
+    ``SORTED_INVALID`` for dropped points, and float32 depths in the same
+    order, which must be >= 0 where kept -> (B, H, W) float32 min-depth map,
+    0 where empty. Kernel C on the card, the plain version on the CPU.
+
+    The rows must be sorted (``ops/raster.py::sort_points_by_pixel``); the
+    kernel does not check it, as the TPU kernel does not."""
+    _check_zbuffer(lin_sorted, z_sorted)
+    hw = height * width
+    if not 0 < hw < SORTED_INVALID:
+        raise ValueError(f"height*width={hw} must be in (0, 2**30)")
+    if not _on_card(lin_sorted):
+        return zbuffer_min_depth_sorted_reference(lin_sorted, z_sorted, height,
+                                                  width)
+    b, p = lin_sorted.shape
+    if b > _GRID_Y_MAX:
+        raise ValueError(f"batch {b} > {_GRID_Y_MAX}: split the call")
+    out = torch.empty((b, height, width), dtype=torch.float32,
+                      device=lin_sorted.device)
+    if b == 0:
+        return out
+    lib = _library("zbuffer_sorted")
+    with torch.cuda.device(lin_sorted.device):
+        err = lib.rdt_zbuffer_min_depth_sorted(
+            lin_sorted.data_ptr(), z_sorted.data_ptr(), out.data_ptr(), b, p,
+            hw, torch.cuda.current_stream().cuda_stream)
+    _check_launch(err, "zbuffer_min_depth_sorted")
+    zbuffer_min_depth_sorted.launches += 1
+    return out
+
+
+zbuffer_min_depth_sorted.launches = 0
 
 
 # ----------------------------------------------------- kernel B: BN epilogue

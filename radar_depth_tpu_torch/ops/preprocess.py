@@ -1,10 +1,11 @@
-"""Eval-path input pipeline: raw schema batch -> model inputs, on the device.
+"""Input pipeline: raw schema batch -> model inputs, on the device.
 
-Mirrors the eval half of ``radar_depth_tpu/ops/preprocess.py``
-(``PreprocessConfig``, ``prepare_eval_batch``, ``pack_model_inputs``). The
+Mirrors ``radar_depth_tpu/ops/preprocess.py`` (``PreprocessConfig``,
+``prepare_eval_batch``, ``prepare_train_batch``, ``pack_model_inputs``). The
 layout at these public functions stays NHWC, as in the JAX package. The
-z-buffer is kernel A (``ops/kernels.py``); both JAX raster backends give the
-same bits, so there is no backend option.
+z-buffer backend is ``raster_backend``, with the JAX package's names and
+default: "sorted" runs the sort and kernel C, "scatter" kernel A
+(``ops/raster.py::rasterize_min_depth``); both give the same bits.
 """
 
 from __future__ import annotations
@@ -17,8 +18,18 @@ import torch
 
 from radar_depth_tpu_torch.data.schema import SampleSpec
 from radar_depth_tpu_torch.device import resolve_device
+from radar_depth_tpu_torch.ops.augment import (
+    AugmentConfig,
+    apply_affine_uv,
+    color_jitter,
+    make_affine,
+    sample_affine_params,
+    warp_depths_nearest,
+    warp_images_bilinear,
+)
 from radar_depth_tpu_torch.ops.geometry import project_points
 from radar_depth_tpu_torch.ops.raster import (
+    RASTER_BACKENDS,
     accumulate_sweeps,
     extend_height,
     rasterize_min_depth,
@@ -29,6 +40,23 @@ from radar_depth_tpu_torch.ops.raster import (
 class PreprocessConfig:
     spec: SampleSpec = SampleSpec()
     height_extension: int = 0  # radar vertical extension (paper ablation)
+    augment: AugmentConfig = AugmentConfig()
+    # LiDAR GT under train-time augmentation: "warp" nearest-warps the stored
+    # map through the affine and divides by s (the reference's transform);
+    # "rerasterize" pushes the LiDAR points through the affine and z-buffers
+    # them again (geometrically exact).
+    gt_augment: str = "warp"
+    raster_backend: str = "sorted"  # z-buffer: "sorted" (kernel C) | "scatter"
+
+    def __post_init__(self):
+        if self.raster_backend not in RASTER_BACKENDS:
+            raise ValueError(
+                f"raster_backend={self.raster_backend!r}: expected 'sorted' "
+                "or 'scatter'")
+        if self.gt_augment not in ("warp", "rerasterize"):
+            raise ValueError(
+                f"gt_augment={self.gt_augment!r}: expected 'warp' or "
+                "'rerasterize'")
 
 
 def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -45,15 +73,31 @@ def _radar_uvz(batch: Dict[str, torch.Tensor]):
     return uv, z, valid
 
 
-def _raster(uv, z, valid, spec: SampleSpec, height_extension: int,
+def _lidar_uvz(batch: Dict[str, torch.Tensor]):
+    uv, z = project_points(batch["lidar_points"], batch["intrinsics"])
+    return uv, z, batch["lidar_valid"]
+
+
+def _raster(uv, z, valid, cfg: PreprocessConfig, height_extension: int,
             plain: bool):
     if height_extension > 0:
         offsets = torch.arange(-height_extension, height_extension + 1,
                                device=uv.device)
         uv, z, valid = extend_height(uv, z, valid, offsets)
+    spec = cfg.spec
     return rasterize_min_depth(uv, z, valid, spec.height, spec.width,
                                min_depth=spec.min_depth,
-                               max_depth=spec.max_depth, plain=plain)[..., None]
+                               max_depth=spec.max_depth,
+                               backend=cfg.raster_backend,
+                               plain=plain)[..., None]
+
+
+def _rgb(b: Dict[str, torch.Tensor], dev: torch.device) -> torch.Tensor:
+    # Divide by a device tensor, not a Python number: CUDA turns x / scalar
+    # into x * (1/scalar), which is off by an ulp for some pixels. The
+    # tensor is filled on the device: a copy from the host would wait for
+    # the stream.
+    return b["image"].to(torch.float32) / torch.full((), 255.0, device=dev)
 
 
 def prepare_eval_batch(batch: Dict, cfg: PreprocessConfig,
@@ -68,11 +112,59 @@ def prepare_eval_batch(batch: Dict, cfg: PreprocessConfig,
     """
     dev = resolve_device(device)
     b = to_device(batch, dev)
-    # Divide by a device tensor, not a Python number: CUDA turns x / scalar
-    # into x * (1/scalar), which is off by an ulp for some pixels.
-    rgb = b["image"].to(torch.float32) / torch.tensor(255.0, device=dev)
     target = b["lidar_depth"][..., None].to(torch.float32)
-    radar = _raster(*_radar_uvz(b), cfg.spec, cfg.height_extension, plain)
+    radar = _raster(*_radar_uvz(b), cfg, cfg.height_extension, plain)
+    return {"rgb": _rgb(b, dev), "radar": radar, "target": target}
+
+
+def prepare_train_batch(batch: Dict, cfg: PreprocessConfig,
+                        aug_params: Tuple | None = None,
+                        generator: torch.Generator | None = None,
+                        device: str | torch.device | None = None,
+                        plain: bool = False) -> Dict[str, torch.Tensor]:
+    """Training-path inputs with on-device augmentation: per sample a random
+    scale s in [1, 1.5], rotation of +-5 degrees, horizontal flip and color
+    jitter; the image is warped bilinearly, radar (and with
+    ``gt_augment="rerasterize"`` the LiDAR GT) is projected through the same
+    affine and z-buffered again, depths divided by s.
+
+    The parameters are ``aug_params`` = (scale, angle, flip, jitter), as
+    ``ops/augment.py::sample_affine_params`` returns them, or are drawn from
+    ``generator``; one of the two is needed when ``cfg.augment.enabled``.
+    Returns the dict of ``prepare_eval_batch``.
+    """
+    dev = resolve_device(device)
+    b = to_device(batch, dev)
+    rgb = _rgb(b, dev)
+    if not cfg.augment.enabled:
+        radar = _raster(*_radar_uvz(b), cfg, cfg.height_extension, plain)
+        target = (b["lidar_depth"][..., None].to(torch.float32)
+                  if cfg.gt_augment == "warp"
+                  else _raster(*_lidar_uvz(b), cfg, 0, plain))
+        return {"rgb": rgb, "radar": radar, "target": target}
+
+    if aug_params is None:
+        if generator is None:
+            raise ValueError("augmentation needs aug_params or a generator")
+        aug_params = sample_affine_params(generator, cfg.augment,
+                                          rgb.shape[0])
+    scale, angle, flip, jitter = (torch.as_tensor(p, device=dev)
+                                  for p in aug_params)
+    spec = cfg.spec
+    A = make_affine(scale, angle, flip, spec.height, spec.width)
+    rgb = color_jitter(warp_images_bilinear(rgb, A), jitter)
+
+    def aug_raster(uv, z, valid, height_extension):
+        uv = apply_affine_uv(A, uv)
+        z = z / scale[:, None]  # zoom in by s => depth / s (reference rule)
+        return _raster(uv, z, valid, cfg, height_extension, plain)
+
+    radar = aug_raster(*_radar_uvz(b), cfg.height_extension)
+    if cfg.gt_augment == "warp":
+        target = warp_depths_nearest(b["lidar_depth"].to(torch.float32), A,
+                                     scale)[..., None]
+    else:
+        target = aug_raster(*_lidar_uvz(b), 0)
     return {"rgb": rgb, "radar": radar, "target": target}
 
 

@@ -2,10 +2,11 @@
 
 Mirrors ``radar_depth_tpu/ops/raster.py``: points ride in fixed-size padded
 buffers with validity masks; ``bin_points`` is the one binning rule (int32
-floor, half-open image bounds, open depth range) and the min-depth z-buffer
-behind it is kernel A (``ops/kernels.py::zbuffer_min_depth``). min is
-order-free, so the map is bit-identical to a sequential loop whatever order
-the points are reduced in.
+floor, half-open image bounds, open depth range). Two z-buffer backends
+follow it, as in the JAX package: "sorted" (``sort_points_by_pixel``, then
+kernel C, ``ops/kernels.py::zbuffer_min_depth_sorted``) and "scatter"
+(kernel A, ``ops/kernels.py::zbuffer_min_depth``). min is order-free, so both
+give the bits of a sequential loop whatever order the points are reduced in.
 """
 
 from __future__ import annotations
@@ -33,39 +34,66 @@ def bin_points(uv: torch.Tensor, z: torch.Tensor, valid: torch.Tensor,
     v = torch.floor(uv[..., 1])
     ok = (valid & (u >= 0) & (u < width) & (v >= 0) & (v < height)
           & (z > min_depth) & (z < max_depth))
-    zero = torch.zeros((), dtype=u.dtype, device=u.device)
-    ui = torch.where(ok, u, zero).to(torch.int32)
-    vi = torch.where(ok, v, zero).to(torch.int32)
-    lin = torch.where(ok, vi * width + ui,
-                      torch.tensor(invalid_lin, dtype=torch.int32,
-                                   device=u.device))
-    zf = torch.where(ok, z, torch.tensor(float("inf"), device=z.device))
+    # Python scalars, not tensors built on the host: a host-to-device copy
+    # of a scalar would wait for the stream.
+    ui = torch.where(ok, u, 0.0).to(torch.int32)
+    vi = torch.where(ok, v, 0.0).to(torch.int32)
+    lin = torch.where(ok, vi * width + ui, invalid_lin).to(torch.int32)
+    zf = torch.where(ok, z, float("inf"))
     return lin, zf.to(torch.float32), ok
+
+
+RASTER_BACKENDS = ("sorted", "scatter")
+
+
+def sort_points_by_pixel(uv: torch.Tensor, z: torch.Tensor, valid: torch.Tensor,
+                         height: int, width: int, min_depth: float,
+                         max_depth: float):
+    """Front half of the sorted backend: ``bin_points`` with dropped points
+    at the sentinel 2**30, then a stable sort of each row by pixel index and
+    the same permutation of the depths. Returns (lin_sorted, z_sorted), each
+    (..., P); within a pixel's run the depths keep their input order, as
+    JAX's ``sort_key_val`` leaves them."""
+    lin, zf, _ = bin_points(uv, z, valid, height, width, min_depth, max_depth,
+                            invalid_lin=kernels.SORTED_INVALID)
+    lin_sorted, order = torch.sort(lin, dim=-1, stable=True)
+    return lin_sorted, torch.gather(zf, -1, order)
 
 
 def rasterize_min_depth(uv: torch.Tensor, z: torch.Tensor, valid: torch.Tensor,
                         height: int, width: int, min_depth: float = 0.0,
                         max_depth: float = float("inf"),
+                        backend: str = "sorted",
                         plain: bool = False) -> torch.Tensor:
     """(..., P, 2) pixel coords, (..., P) depths and masks -> (..., H, W)
     float32 map of the minimum depth per pixel, 0 where no point lands.
 
-    Kernel A reduces on the int32 bit pattern of the depth, which orders like
-    the float only for non-negative depths, so ``min_depth`` must be >= 0
+    ``backend="sorted"`` sorts the points by pixel and runs kernel C;
+    ``"scatter"`` runs kernel A on the points as they come. Both kernels
+    reduce on the int32 bit pattern of the depth, which orders like the
+    float only for non-negative depths, so ``min_depth`` must be >= 0
     (``bin_points`` keeps only ``z > min_depth``). ``plain=True`` runs the
     kernel's plain PyTorch version on any device (the reference on the card).
     """
+    if backend not in RASTER_BACKENDS:
+        raise ValueError(f"raster backend {backend!r}: expected one of "
+                         f"{RASTER_BACKENDS}")
     if min_depth < 0:
         raise ValueError(
             f"min_depth={min_depth}: the z-buffer orders depths by their "
             "int32 bits, which needs non-negative depths")
     lead = uv.shape[:-2]
     p = uv.shape[-2]
-    lin, zf, _ = bin_points(uv.reshape(-1, p, 2), z.reshape(-1, p),
-                            valid.reshape(-1, p), height, width, min_depth,
-                            max_depth, invalid_lin=-1)
-    fn = (kernels.zbuffer_min_depth_reference if plain
-          else kernels.zbuffer_min_depth)
+    args = (uv.reshape(-1, p, 2), z.reshape(-1, p), valid.reshape(-1, p),
+            height, width, min_depth, max_depth)
+    if backend == "sorted":
+        lin, zf = sort_points_by_pixel(*args)
+        fn = (kernels.zbuffer_min_depth_sorted_reference if plain
+              else kernels.zbuffer_min_depth_sorted)
+    else:
+        lin, zf, _ = bin_points(*args, invalid_lin=-1)
+        fn = (kernels.zbuffer_min_depth_reference if plain
+              else kernels.zbuffer_min_depth)
     out = fn(lin.contiguous(), zf.contiguous(), height, width)
     return out.reshape(lead + (height, width))
 

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from radar_depth_tpu_torch.ops import kernels
-from radar_depth_tpu_torch.ops.raster import bin_points
+from radar_depth_tpu_torch.ops.raster import bin_points, sort_points_by_pixel
 
 
 def _random_points(b, p, h, w, seed):
@@ -50,3 +50,24 @@ def test_kernels_match_plain_versions_on_card(dtype):
     for res in (None, r):
         assert torch.equal(kernels.scale_bias_relu(x, s, b, res),
                            kernels.scale_bias_relu_reference(x, s, b, res))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,p", [(4, 640), (2, 40960), (3, 641)])
+def test_sorted_zbuffer_matches_plain_and_kernel_a_on_card(b, p):
+    """Kernel C against its plain version and against kernel A on the same
+    points, bit-exact, twice (the map does not depend on the order in which
+    the atomics land); P=641 is not a multiple of the block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    dev = torch.device("cuda")
+    h, w = 90, 160
+    uv, z, valid = (torch.from_numpy(a).to(dev)
+                    for a in _random_points(b, p, h, w, seed=p))
+    lin, zs = sort_points_by_pixel(uv, z, valid, h, w, 0.0, 80.0)
+    got = kernels.zbuffer_min_depth_sorted(lin, zs, h, w)
+    assert torch.equal(got, kernels.zbuffer_min_depth_sorted(lin, zs, h, w))
+    assert torch.equal(got, kernels.zbuffer_min_depth_sorted_reference(
+        lin, zs, h, w))
+    lin_a, zf_a, _ = bin_points(uv, z, valid, h, w, 0.0, 80.0, -1)
+    assert torch.equal(got, kernels.zbuffer_min_depth(lin_a, zf_a, h, w))

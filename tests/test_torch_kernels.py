@@ -16,9 +16,17 @@ from radar_depth_tpu.ops.pallas_kernels import (
     fused_scale_bias_relu,
     points_to_linear,
     rasterize_min_depth_pallas,
+    rasterize_min_depth_pallas_sorted,
+)
+from radar_depth_tpu.ops.raster import (
+    sort_points_by_pixel as jax_sort_points_by_pixel,
 )
 from radar_depth_tpu_torch.ops import kernels
-from radar_depth_tpu_torch.ops.raster import bin_points, rasterize_min_depth
+from radar_depth_tpu_torch.ops.raster import (
+    bin_points,
+    rasterize_min_depth,
+    sort_points_by_pixel,
+)
 
 
 def _random_points(b, p, h, w, seed):
@@ -92,6 +100,73 @@ def test_zbuffer_all_invalid_and_one_pixel():
     assert got[1, 2, 7] == np.float32(1.0) and got[1].sum() == np.float32(1.0)
 
 
+@pytest.mark.parametrize("p,tile_rows", [(700, 8), (2000, 4), (130, 16)])
+def test_sorted_zbuffer_matches_pallas_sorted(p, tile_rows):
+    """Kernel C's plain version bit-exact against the sorted Pallas kernel in
+    interpret mode (any tile height) and against kernel A's plain version,
+    on the same sorted points; the sort itself bit-exact against the JAX
+    package's (stable: a pixel's depths keep their input order)."""
+    b, h, w = 2, 37, 61  # not multiples of any tile
+    uv, z, valid = _random_points(b, p, h, w, seed=p)
+    lin_j, z_j = jax_sort_points_by_pixel(jnp.asarray(uv), jnp.asarray(z),
+                                          jnp.asarray(valid), h, w, 0.0, 80.0)
+    lin, zs = sort_points_by_pixel(torch.from_numpy(uv), torch.from_numpy(z),
+                                   torch.from_numpy(valid), h, w, 0.0, 80.0)
+    np.testing.assert_array_equal(lin.numpy(), np.asarray(lin_j))
+    np.testing.assert_array_equal(zs.numpy(), np.asarray(z_j))
+    assert (lin.numpy() == kernels.SORTED_INVALID).any()
+    got = kernels.zbuffer_min_depth_sorted_reference(lin, zs, h, w)
+    want = np.asarray(rasterize_min_depth_pallas_sorted(
+        lin_j, z_j, h, w, tile_rows=tile_rows, interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    lin_a, zf_a, _ = bin_points(torch.from_numpy(uv), torch.from_numpy(z),
+                                torch.from_numpy(valid), h, w, 0.0, 80.0, -1)
+    np.testing.assert_array_equal(
+        got.numpy(), kernels.zbuffer_min_depth_reference(lin_a, zf_a, h,
+                                                         w).numpy())
+    for backend in ("sorted", "scatter"):
+        full = rasterize_min_depth(torch.from_numpy(uv), torch.from_numpy(z),
+                                   torch.from_numpy(valid), h, w, 0.0, 80.0,
+                                   backend=backend)
+        np.testing.assert_array_equal(full.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["empty", "dense"])
+def test_sorted_zbuffer_empty_and_dense(case):
+    """An all-invalid batch element, and one whose points all land in one
+    pixel (the longest run), against the sorted Pallas kernel."""
+    h, w, p = 16, 32, 256
+    uv = np.zeros((2, p, 2), np.float32)
+    uv[1, :, 0], uv[1, :, 1] = 7.3, 2.9
+    z = np.full((2, p), 5.0, np.float32)
+    z[1] = np.linspace(80, 1, p)
+    valid = np.zeros((2, p), bool)
+    if case == "dense":
+        valid[1] = True
+    lin_j, z_j = jax_sort_points_by_pixel(jnp.asarray(uv), jnp.asarray(z),
+                                          jnp.asarray(valid), h, w, 0.0, 100.0)
+    lin, zs = sort_points_by_pixel(torch.from_numpy(uv), torch.from_numpy(z),
+                                   torch.from_numpy(valid), h, w, 0.0, 100.0)
+    np.testing.assert_array_equal(lin.numpy(), np.asarray(lin_j))
+    got = kernels.zbuffer_min_depth_sorted_reference(lin, zs, h, w)
+    want = np.asarray(rasterize_min_depth_pallas_sorted(lin_j, z_j, h, w,
+                                                        interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[0].sum() == 0.0
+    if case == "dense":
+        assert got[1, 2, 7] == np.float32(1.0)
+        assert got[1].sum() == np.float32(1.0)
+    else:
+        assert got.sum() == 0.0
+
+
+def test_rasterize_rejects_unknown_backend():
+    uv = torch.zeros(1, 4, 2)
+    with pytest.raises(ValueError, match="backend"):
+        rasterize_min_depth(uv, torch.ones(1, 4), torch.ones(1, 4, dtype=bool),
+                            4, 4, backend="dense")
+
+
 def test_zbuffer_rejects_negative_min_depth():
     uv = torch.zeros(1, 4, 2)
     with pytest.raises(ValueError, match="non-negative"):
@@ -130,11 +205,16 @@ def test_wrappers_run_plain_version_on_cpu():
     """Given CPU tensors, the wrappers return their plain versions' result
     and launch nothing (the counters do not move)."""
     kernels.zbuffer_min_depth.launches = 0
+    kernels.zbuffer_min_depth_sorted.launches = 0
     kernels.scale_bias_relu.launches = 0
     lin = torch.tensor([[3, -1, 3, 7]], dtype=torch.int32)
     z = torch.tensor([[4.0, 1.0, 2.0, 6.0]])
     got = kernels.zbuffer_min_depth(lin, z, 2, 4)
     assert torch.equal(got, kernels.zbuffer_min_depth_reference(lin, z, 2, 4))
+    lin_s = torch.tensor([[3, 3, 7, kernels.SORTED_INVALID]], dtype=torch.int32)
+    z_s = torch.tensor([[4.0, 2.0, 6.0, float("inf")]])
+    assert torch.equal(kernels.zbuffer_min_depth_sorted(lin_s, z_s, 2, 4), got)
+    assert kernels.zbuffer_min_depth_sorted.launches == 0
     x = torch.randn(2, 8, 3, 5).to(memory_format=torch.channels_last)
     s, b = torch.randn(8), torch.randn(8)
     assert torch.equal(kernels.scale_bias_relu(x, s, b, x),
@@ -155,3 +235,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError):
         kernels.zbuffer_min_depth(torch.zeros(1, 4, dtype=torch.int64),
                                   torch.zeros(1, 4), 2, 2)
+    with pytest.raises(TypeError):
+        kernels.zbuffer_min_depth_sorted(torch.zeros(1, 4, dtype=torch.int32),
+                                         torch.zeros(1, 4).double(), 2, 2)
+    with pytest.raises(ValueError, match="2\\*\\*30"):
+        kernels.zbuffer_min_depth_sorted(torch.zeros(1, 4, dtype=torch.int32),
+                                         torch.zeros(1, 4), 1 << 15, 1 << 15)
