@@ -40,7 +40,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {"zbuffer": "zbuffer.cu", "epilogue": "epilogue.cu",
            "zbuffer_sorted": "zbuffer_sorted.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,7 +69,9 @@ def library_path(name: str) -> Path:
 
 def build(names=tuple(SOURCES)) -> dict:
     """Compile the named sources that are not built yet, one ``nvcc`` each,
-    all started together. Returns {name: seconds} for what was compiled."""
+    all started together. Returns {name: {"seconds": s, "ptxas": [...]}} for
+    what was compiled, "ptxas" holding ptxas's lines on each kernel's
+    registers, shared memory and spills."""
     todo = [n for n in names if not library_path(n).is_file()]
     if not todo:
         return {}
@@ -82,17 +84,20 @@ def build(names=tuple(SOURCES)) -> dict:
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True), tmp)
-    seconds, failed = {}, []
+    built, failed = {}, []
     for n, (proc, tmp) in procs.items():
         log, _ = proc.communicate()
-        seconds[n] = time.perf_counter() - t0
+        built[n] = {"seconds": time.perf_counter() - t0,
+                    "ptxas": [line.strip() for line in log.splitlines()
+                              if line.startswith("ptxas info")
+                              or "bytes spill" in line]}
         if proc.returncode != 0:
             failed.append(f"{SOURCES[n]} (nvcc exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, library_path(n))
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return seconds
+    return built
 
 
 def _library(name: str) -> ctypes.CDLL:
@@ -167,7 +172,13 @@ def zbuffer_min_depth(lin: torch.Tensor, zf: torch.Tensor, height: int,
                       width: int) -> torch.Tensor:
     """(B, P) int32 linear pixel indices (-1 = dropped) and float32 depths,
     which must be >= 0 where kept -> (B, H, W) float32 min-depth map, 0 where
-    empty. Kernel A on the card, the plain version on the CPU."""
+    empty. Kernel A on the card, the plain version on the CPU.
+
+    The kernel's map is bit-equal to the plain version's, except where a
+    kept depth of exactly +0.0 is a pixel's minimum: the kernel writes -0.0
+    there (its empty pixel has the bits of +0.0), which equals the plain
+    version's +0.0 as a float (``torch.equal``). ``bin_points`` keeps only
+    depths > min_depth >= 0, so the main path never hits that case."""
     _check_zbuffer(lin, zf)
     if not _on_card(lin):
         return zbuffer_min_depth_reference(lin, zf, height, width)

@@ -13,6 +13,58 @@ from radar_depth_tpu_torch.ops import kernels
 from radar_depth_tpu_torch.ops.raster import bin_points, sort_points_by_pixel
 
 
+ZBUFFER_EDGE_CASES = ("tile_edges", "hw_not_multiple_of_4", "b1_p1",
+                      "one_tile_p4096", "kept_zero",
+                      "empty_row_beside_full_row")
+
+
+def zbuffer_edge_case(name):
+    """(lin, z, height, width) of one z-buffer edge case, as numpy arrays:
+    lin (B, P) int32 linear pixel indices with -1 for a dropped point, z
+    (B, P) float32 depths. 40x64 has 2560 pixels: two full 1024-pixel tiles
+    and a partial last one; 37x61 has 2257, not a multiple of 4."""
+    rng = np.random.default_rng(ZBUFFER_EDGE_CASES.index(name))
+    depth = lambda shape: rng.uniform(0.5, 80, size=shape).astype(np.float32)
+    if name == "tile_edges":  # the last pixel of the partial last tile too
+        h, w = 40, 64
+        edges = np.repeat(np.asarray([1023, 1024, 2047, 2048, h * w - 1]), 3)
+        lin = np.stack([rng.permutation(np.concatenate(
+            [edges, rng.integers(-1, h * w, 49)])) for _ in range(2)])
+        return lin.astype(np.int32), depth(lin.shape), h, w
+    if name == "hw_not_multiple_of_4":
+        h, w = 37, 61
+        lin = rng.integers(-1, h * w, (3, 300)).astype(np.int32)
+        lin[:, :10] = np.tile([1023, 1024, 2047, 2048, h * w - 1], 2)
+        return lin, depth(lin.shape), h, w
+    if name == "b1_p1":
+        return (np.asarray([[1500]], np.int32), np.asarray([[7.5]], np.float32),
+                40, 64)
+    if name == "one_tile_p4096":  # every point in tile 1, many per pixel
+        lin = rng.integers(1024, 2048, (2, 4096)).astype(np.int32)
+        return lin, depth(lin.shape), 40, 64
+    if name == "kept_zero":  # a depth of exactly +0.0 beside larger ones
+        lin = np.asarray([[1024, 1024, 1024, 7, 7, 2559, 300, -1],
+                          [5, 5, 2048, 2048, 0, 0, -1, 1023]], np.int32)
+        z = np.asarray([[5, 0, 3, 0, 5, 0, 2, 0],
+                        [0, 0, 4, 1, 9, 0, 0, 6]], np.float32)
+        return lin, z, 40, 64
+    if name == "empty_row_beside_full_row":  # row 1 hits every pixel twice
+        h, w = 16, 32
+        full = rng.permutation(np.tile(np.arange(h * w), 2))
+        lin = np.stack([np.full_like(full, -1), full]).astype(np.int32)
+        return lin, depth(lin.shape), h, w
+    raise ValueError(name)
+
+
+def sort_by_pixel(lin, z):
+    """numpy (lin with -1 for dropped, z) -> the sorted form kernel C takes:
+    each row stably sorted by pixel, dropped points at the sentinel."""
+    key = np.where(lin >= 0, lin, kernels.SORTED_INVALID).astype(np.int32)
+    order = np.argsort(key, axis=-1, kind="stable")
+    return (np.take_along_axis(key, order, -1),
+            np.take_along_axis(z, order, -1))
+
+
 def _random_points(b, p, h, w, seed):
     rng = np.random.default_rng(seed)
     uv = np.stack([rng.uniform(-5, w * 1.4, size=(b, p)),
@@ -71,3 +123,30 @@ def test_sorted_zbuffer_matches_plain_and_kernel_a_on_card(b, p):
         lin, zs, h, w))
     lin_a, zf_a, _ = bin_points(uv, z, valid, h, w, 0.0, 80.0, -1)
     assert torch.equal(got, kernels.zbuffer_min_depth(lin_a, zf_a, h, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ZBUFFER_EDGE_CASES)
+def test_zbuffer_edge_cases_on_card(case):
+    """Kernels A and C on the edge cases, twice each, against their plain
+    versions and against each other: bit-exact, except that kernel A writes
+    -0.0 where a kept +0.0 is a pixel's minimum, which equals the plain
+    version's +0.0 only as a float."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    dev = torch.device("cuda")
+    lin, z, h, w = zbuffer_edge_case(case)
+    lin_s, z_s = sort_by_pixel(lin, z)
+    lin, z, lin_s, z_s = (torch.from_numpy(a).to(dev)
+                          for a in (lin, z, lin_s, z_s))
+    want = kernels.zbuffer_min_depth_reference(lin, z, h, w)
+    bits = lambda x: x.view(torch.int32)
+    for _ in range(2):
+        a = kernels.zbuffer_min_depth(lin, z, h, w)
+        c = kernels.zbuffer_min_depth_sorted(lin_s, z_s, h, w)
+        assert torch.equal(bits(c), bits(want))
+        assert torch.equal(a, want) and torch.equal(a, c)
+        if case == "kept_zero":
+            assert (bits(a) == torch.iinfo(torch.int32).min).any()
+        else:
+            assert torch.equal(bits(a), bits(want))

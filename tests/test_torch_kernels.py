@@ -23,9 +23,15 @@ from radar_depth_tpu.ops.raster import (
 )
 from radar_depth_tpu_torch.ops import kernels
 from radar_depth_tpu_torch.ops.raster import (
+    RASTER_BACKENDS,
     bin_points,
     rasterize_min_depth,
     sort_points_by_pixel,
+)
+from tests.test_torch_gpu import (
+    ZBUFFER_EDGE_CASES,
+    sort_by_pixel,
+    zbuffer_edge_case,
 )
 
 
@@ -158,6 +164,40 @@ def test_sorted_zbuffer_empty_and_dense(case):
         assert got[1].sum() == np.float32(1.0)
     else:
         assert got.sum() == 0.0
+
+
+@pytest.mark.parametrize("case", ZBUFFER_EDGE_CASES)
+def test_zbuffer_edge_cases_match_both_pallas_kernels(case):
+    """The edge cases the CUDA kernels are held to on the card
+    (tests/test_torch_gpu.py): both plain versions, through the wrappers and
+    through rasterize_min_depth with both backends, bit-exact against both
+    Pallas kernels in interpret mode. The kept +0.0 goes to the wrappers
+    directly, since bin_points keeps only depths > min_depth >= 0."""
+    lin, z, h, w = zbuffer_edge_case(case)
+    lin_s, z_s = sort_by_pixel(lin, z)
+    bits = lambda a: np.asarray(a, np.float32).view(np.int32)
+    want = np.asarray(rasterize_min_depth_pallas(
+        jnp.asarray(lin), jnp.asarray(z), h, w, interpret=True))
+    want_sorted = np.asarray(rasterize_min_depth_pallas_sorted(
+        jnp.asarray(lin_s), jnp.asarray(z_s), h, w, interpret=True))
+    np.testing.assert_array_equal(bits(want_sorted), bits(want))
+    got = {"A": kernels.zbuffer_min_depth(torch.from_numpy(lin),
+                                          torch.from_numpy(z), h, w),
+           "C": kernels.zbuffer_min_depth_sorted(torch.from_numpy(lin_s),
+                                                 torch.from_numpy(z_s), h, w)}
+    kept = lin >= 0
+    if case == "kept_zero":
+        assert (z[kept] == 0).any() and want[0, 1024 // w, 1024 % w] == 0
+    else:  # pixel centres, so that bin_points gives back lin
+        assert (z[kept] > 0).all()
+        uv = np.stack([lin % w, lin // w], axis=-1).astype(np.float32) + 0.5
+        for backend in RASTER_BACKENDS:
+            got[backend] = rasterize_min_depth(
+                torch.from_numpy(uv), torch.from_numpy(z),
+                torch.from_numpy(kept), h, w, backend=backend)
+    for name, g in got.items():
+        np.testing.assert_array_equal(bits(g.numpy()), bits(want),
+                                      err_msg=name)
 
 
 def test_rasterize_rejects_unknown_backend():
