@@ -41,6 +41,17 @@ Phases, each printing one JSON line:
                  the plain path
   profile        device time by kernel category over one B=8 predict call
   profile_train  the same over one B=8 train step, float32 and bfloat16
+  harness        the training harness at full width (flagship, bfloat16,
+                 B=8, 450x800) on packed SyntheticNuScenes shards (48 train,
+                 16 val) through the native loader with host augmentation:
+                 train.main for 2 epochs (launch counts per train step and
+                 per val forward), the run directory's files, --resume to
+                 epoch 3 against a straight 3-epoch run, --evaluate against
+                 the best stored row, Predictor.from_run against the
+                 Trainer model's eval-mode prediction; epoch img/s, data and
+                 device time per step, epoch walls, checkpoint size and save
+                 time, --evaluate img/s
+  profile_harness  device time and idle share over one harness train epoch
 Then the kernels' summary line, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line;
 without a card, or without the package beside it, it exits non-zero at once.
@@ -73,6 +84,11 @@ BF16_REL_RMSE_TOL = 0.2  # bfloat16 forward vs float32 plain: sanity bound
 SUMS_RTOL = 1e-4  # loss and metric sums, as the CPU parity tests
 UPDATE_TOL = 5e-2  # per-tensor update error, normalized as the CPU tests
 STATS_TOL = dict(atol=1e-5, rtol=1e-4)  # BN running statistics
+HARNESS_TRAIN, HARNESS_VAL = 48, 16  # packed samples per split
+RESUME_RTOL = 1e-3  # resumed vs straight run, last test.csv row, on the card
+EVAL_RTOL = 1e-5  # --evaluate vs the best epoch's stored test.csv row
+CSV_METRICS = ("mse", "rmse", "absrel", "lg10", "mae", "delta1", "delta2",
+               "delta3")
 
 
 def emit(obj) -> None:
@@ -966,6 +982,289 @@ def phase_profile_train(torch, dev, trained, batch):
     return out
 
 
+# ------------------------------------------------------------- harness
+
+
+def csv_rows(path):
+    import csv
+
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def row_rel_diff(a, b):
+    """Largest relative difference of the metric columns of two CSV rows."""
+    return max(abs(float(a[k]) - float(b[k])) / max(abs(float(b[k])), 1e-12)
+               for k in CSV_METRICS)
+
+
+class count_by_phase:
+    """Context: the kernels' launches inside Trainer.train_epoch and
+    Trainer.validate, summed per method, read around each call."""
+
+    def __init__(self):
+        self.counts = {"train_epoch": {}, "validate": {}}
+
+    def __enter__(self):
+        from radar_depth_tpu_torch.train import loop
+
+        self.saved = {n: getattr(loop.Trainer, n) for n in self.counts}
+        for name, orig in self.saved.items():
+            setattr(loop.Trainer, name, self._wrap(name, orig))
+        return self
+
+    def _wrap(self, name, orig):
+        def counted(trainer, *args, **kwargs):
+            before = read_launches()
+            try:
+                return orig(trainer, *args, **kwargs)
+            finally:
+                after = read_launches()
+                acc = self.counts[name]
+                for k in after:
+                    acc[k] = acc.get(k, 0) + after[k] - before[k]
+        return counted
+
+    def __exit__(self, *exc):
+        from radar_depth_tpu_torch.train import loop
+
+        for name, orig in self.saved.items():
+            setattr(loop.Trainer, name, orig)
+
+
+def write_harness_data(root):
+    """Packed train/val shards of SyntheticNuScenes at full size, val
+    tagged day/night. Returns seconds and bytes."""
+    from radar_depth_tpu_torch.data import SampleSpec, SyntheticNuScenes
+    from radar_depth_tpu_torch.data.packed import write_shards
+
+    t0 = time.perf_counter()
+    spec = SampleSpec(height=H, width=W, num_sweeps=5)
+    nbytes = 0
+    for split, n, seed in (("train", HARNESS_TRAIN, 0),
+                           ("val", HARNESS_VAL, 1)):
+        ds = SyntheticNuScenes(n, spec=spec, seed=seed)
+        for path in write_shards(os.path.join(root, split),
+                                 (ds[i] for i in range(n)),
+                                 tags=[ds.sample_tag(i) for i in range(n)]):
+            nbytes += os.path.getsize(path)
+    return time.perf_counter() - t0, nbytes
+
+
+def check_run_dir(run_dir, epochs, cfg):
+    """The files of a run directory after ``epochs`` epochs."""
+    from radar_depth_tpu_torch.config import load_config
+    from radar_depth_tpu_torch.train import checkpoint as ckpt_lib
+    from radar_depth_tpu_torch.utils.csvlog import FIELDNAMES
+
+    names = set(os.listdir(run_dir))
+    want = {".trainer.lock", "config.json", "train.csv", "test.csv",
+            "best.txt", "checkpoints"} | {f"comparison_epoch{e}.png"
+                                          for e in range(epochs)}
+    if not want <= names:
+        raise AssertionError(f"run dir lacks {sorted(want - names)}")
+    if load_config(os.path.join(run_dir, "config.json")) != cfg:
+        raise AssertionError("config.json differs from the run's config")
+    for name in ("train.csv", "test.csv"):
+        with open(os.path.join(run_dir, name)) as f:
+            if f.readline().strip() != ",".join(FIELDNAMES):
+                raise AssertionError(f"{name} header")
+        rows = csv_rows(os.path.join(run_dir, name))
+        if [int(r["epoch"]) for r in rows] != list(range(epochs)):
+            raise AssertionError(f"{name} epochs {[r['epoch'] for r in rows]}")
+        if not all(math.isfinite(float(r[k])) for r in rows
+                   for k in CSV_METRICS):
+            raise AssertionError(f"{name} has non-finite metrics")
+    test = csv_rows(os.path.join(run_dir, "test.csv"))
+    best = min(test, key=lambda r: float(r["rmse"]))
+    with open(os.path.join(run_dir, "best.txt")) as f:
+        if not f.read().startswith(f"epoch={best['epoch']}, "
+                                   f"rmse={float(best['rmse']):.4f}"):
+            raise AssertionError("best.txt is not the best test.csv row")
+    with open(os.path.join(run_dir, f"comparison_epoch{epochs - 1}.png"),
+              "rb") as f:
+        if f.read(8) != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError("comparison panel is not a PNG")
+    mgr = ckpt_lib.CheckpointManager(run_dir, sweep_stale=False)
+    steps = mgr.all_steps()
+    if steps[-1] != epochs - 1 or mgr.best_step() != int(best["epoch"]):
+        raise AssertionError(f"checkpoints {steps}, best {mgr.best_step()}")
+    payload = ckpt_lib.load_payload(os.path.join(mgr.dir, str(steps[-1])))
+    if set(payload) != {"model", "optimizer", "step", "epoch", "rmse"}:
+        raise AssertionError(f"checkpoint keys {sorted(payload)}")
+    return best, steps
+
+
+def phase_harness(torch, np, dev, bare_step):
+    """The training harness through train.main, at full width."""
+    import shutil
+    import tempfile
+
+    from radar_depth_tpu_torch.config import parse_command
+    from radar_depth_tpu_torch.data.packed import PackedDataset
+    from radar_depth_tpu_torch.inference import Predictor
+    from radar_depth_tpu_torch.train.loop import Trainer
+    from radar_depth_tpu_torch.train.main import run
+    from radar_depth_tpu_torch.train.step import make_predict_fn
+
+    tmp = tempfile.mkdtemp(prefix="rdt-harness-")
+    try:
+        data = os.path.join(tmp, "data")
+        data_s, data_bytes = write_harness_data(data)
+        base = ["--arch", "resnet18_multistage", "--decoder", "upproj",
+                "--dtype", "bfloat16", "-b", str(B_TRAIN),
+                "--dataset", "packed", "--data-root", data,
+                "--height", str(H), "--width", str(W), "--num-sweeps", "5",
+                "--print-freq", "100"]
+        run_dir = os.path.join(tmp, "run")
+
+        # the main path, counted: 2 epochs through train.main
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with count_by_phase() as phases:
+            r2 = run(base + ["--epochs", "2", "--output-dir", run_dir])
+        fit_s = time.perf_counter() - t0
+        launches = read_launches()
+        if r2["reader"] != "native" or not r2["host_augment"]:
+            raise AssertionError(f"harness reader {r2['reader']}, host "
+                                 f"augmentation {r2['host_augment']}")
+        steps = sum(h["train"]["steps"] for h in r2["history"])
+        val_batches = 2 * math.ceil(HARNESS_VAL / B_TRAIN)
+        panels = 2  # one panel row per epoch (val_viz_every=50)
+        want_train = {KERNELS["A"]: 0, KERNELS["B"]: 0, KERNELS["C"]: steps}
+        want_val = {KERNELS["A"]: 0,
+                    KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD
+                    * (val_batches + panels),
+                    KERNELS["C"]: val_batches + panels}
+        if (phases.counts["train_epoch"] != want_train
+                or phases.counts["validate"] != want_val
+                or launches != {k: want_train[k] + want_val[k]
+                                for k in launches}):
+            raise AssertionError(
+                f"harness launches {launches} (train {phases.counts}), "
+                f"expected train {want_train}, val {want_val}")
+        if steps != 2 * (HARNESS_TRAIN // B_TRAIN):
+            raise AssertionError(f"{steps} train steps in 2 epochs")
+        best2, steps2 = check_run_dir(run_dir, 2, r2["cfg"])
+
+        # --resume to epoch 3 against a straight 3-epoch run
+        r3 = run(["--resume", run_dir, "--epochs", "3", "--output-dir",
+                  run_dir, "--print-freq", "100"])
+        straight = os.path.join(tmp, "straight")
+        r3s = run(base + ["--epochs", "3", "--output-dir", straight])
+        best, ckpt_steps = check_run_dir(run_dir, 3, r3["cfg"])
+        check_run_dir(straight, 3, r3s["cfg"])
+        got = csv_rows(os.path.join(run_dir, "test.csv"))
+        want = csv_rows(os.path.join(straight, "test.csv"))
+        resume = {"epoch_rel_diff": [row_rel_diff(a, b)
+                                     for a, b in zip(got, want)],
+                  "last_row_resumed": {k: float(got[-1][k])
+                                       for k in CSV_METRICS},
+                  "last_row_straight": {k: float(want[-1][k])
+                                        for k in CSV_METRICS}}
+        resume["bit_equal_last_row"] = all(got[-1][k] == want[-1][k]
+                                           for k in CSV_METRICS)
+        if resume["epoch_rel_diff"][-1] > RESUME_RTOL:
+            raise AssertionError(f"resumed vs straight run: {resume}")
+
+        # --evaluate reproduces the best stored row
+        t0 = time.perf_counter()
+        ev = run(["--evaluate", run_dir, "--eval-splits", "--output-dir",
+                  os.path.join(tmp, "eval")])
+        eval_call_s = time.perf_counter() - t0
+        val = ev["validation"]
+        # the stored row is rounded to 6 decimals
+        eval_err = max((abs(val[k] - float(best[k])) - 5e-7)
+                       / max(abs(float(best[k])), 1e-12)
+                       for k in CSV_METRICS)
+        if eval_err > EVAL_RTOL or set(ev["splits"]) != {"day", "night"}:
+            raise AssertionError(f"--evaluate {val} vs best row {best} "
+                                 f"({eval_err:.2e}), splits "
+                                 f"{sorted(ev['splits'])}")
+        eval_batches = math.ceil(HARNESS_VAL / B_TRAIN)
+        eval_loop_s = eval_batches * (val["data_time"] + val["gpu_time"])
+
+        # Predictor.from_run against the Trainer model's eval prediction
+        b8 = PackedDataset(os.path.join(data, "val")).batch(range(B_TRAIN))
+        served = Predictor.from_run(run_dir).predict(b8)
+        tr = Trainer(parse_command(["--evaluate", run_dir, "--output-dir",
+                                    os.path.join(tmp, "eval2")]))
+        tr.load_for_evaluate()
+        own = make_predict_fn(tr.model, tr.arch_spec, tr.cfg)(b8)[
+            "pred"][..., 0].float().cpu().numpy()
+        tr.close()
+        del tr
+        if served.shape != (B_TRAIN, H, W) or not np.isfinite(served).all():
+            raise AssertionError("from_run prediction shape or values")
+        np.testing.assert_allclose(served, own, **SMALL_TOL)
+
+        # the bare bf16 step again, now with the Trainer's deterministic
+        # cuDNN convolutions (the train phase ran without them)
+        model, _, state, step = train_setup(torch, train_config("bfloat16"),
+                                            dev)
+        _, times = run_steps(torch, dev, step, state, b8, TRAIN_STEPS)
+        det_step = B_TRAIN / statistics.median(times[1:])
+        del model, state, step
+
+        hist = r2["history"] + r3["history"]
+        out = {
+            "phase": "harness", "arch": "resnet18_multistage",
+            "decoder": "upproj", "dtype": "bfloat16", "batch": B_TRAIN,
+            "hw": [H, W], "sweeps": 5, "samples": [HARNESS_TRAIN,
+                                                   HARNESS_VAL],
+            "data_write_s": data_s, "data_bytes": data_bytes,
+            "reader": r2["reader"], "host_augment": r2["host_augment"],
+            "launches": launches, "launches_by_phase": phases.counts,
+            "train_steps": steps, "val_forwards": val_batches + panels,
+            "fit_2_epochs_s": fit_s,
+            "epochs": [{"epoch": h["epoch"], "walls_s": h["walls"],
+                        "img_per_s": h["train"]["steps"] * B_TRAIN
+                        / h["walls"]["train"],
+                        "data_time_s": h["train"]["data_time"],
+                        "gpu_time_s": h["train"]["gpu_time"],
+                        "loss": h["train"]["loss"],
+                        "val_rmse": h["val"]["rmse"],
+                        "val_data_time_s": h["val"]["data_time"],
+                        "val_gpu_time_s": h["val"]["gpu_time"]}
+                       for h in hist],
+            "bare_step_img_per_s_bf16": bare_step,
+            "bare_step_img_per_s_bf16_deterministic": det_step,
+            "cudnn_deterministic": torch.backends.cudnn.deterministic,
+            "checkpoints": r2["saves"] + r3["saves"],
+            "checkpoint_steps": ckpt_steps,
+            "resume": resume,
+            "evaluate": {"rel_err_vs_best_row": eval_err,
+                         "img_per_s": HARNESS_VAL / eval_loop_s,
+                         "call_s": eval_call_s,
+                         "splits": {t: m["count"]
+                                    for t, m in ev["splits"].items()}},
+            "from_run_vs_trainer_max_abs": float(np.abs(served - own).max()),
+        }
+        emit(out)
+        prof = profile_harness(torch, base, os.path.join(tmp, "prof"))
+        return out, prof
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def profile_harness(torch, base, out_dir):
+    """Device time and idle share of one harness train epoch (the second:
+    the first warms up), native loader with host augmentation, under
+    torch.profiler."""
+    from radar_depth_tpu_torch.config import parse_command
+    from radar_depth_tpu_torch.train.loop import Trainer
+
+    tr = Trainer(parse_command(base + ["--epochs", "2", "--output-dir",
+                                       out_dir]))
+    epochs = iter(range(2))
+    try:
+        return profile_device(torch, lambda: tr.train_epoch(next(epochs)),
+                              "profile_harness", B_TRAIN)
+    finally:
+        tr.close()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
@@ -1023,6 +1322,10 @@ def main(argv=None) -> int:
     train, train_launches, trained = phase_train(torch, np, dev, batch)
     ev = phase_eval(torch, np, dev, batch, trained)
     prof_train = phase_profile_train(torch, dev, trained, batch)
+    del trained
+    torch.cuda.empty_cache()
+    harness, prof_harness = phase_harness(
+        torch, np, dev, train["bfloat16"]["img_per_s"])
 
     stem = next(r for r in epi if r["dtype"] == "bfloat16"
                 and not r["residual"] and r["shape_nchw"][1] == 64
@@ -1033,7 +1336,9 @@ def main(argv=None) -> int:
         {"name": "zbuffer_min_depth", "route": "cuda",
          "source": "radar_depth_tpu_torch/csrc/zbuffer.cu",
          "replaces": "radar_depth_tpu/ops/pallas_kernels.py:71",
-         "launches": launches_sc[KERNELS["A"]], "max_abs_err": 0.0,
+         "launches": launches_sc[KERNELS["A"]],
+         "launches_harness": harness["launches"][KERNELS["A"]],
+         "max_abs_err": 0.0,
          "ms": serve["ms"], "ms_cold": serve["ms_cold"],
          "ms_back_to_back": serve["ms_back_to_back"],
          "plain_ms": serve["plain_ms"],
@@ -1044,6 +1349,7 @@ def main(argv=None) -> int:
          "source": "radar_depth_tpu_torch/csrc/epilogue.cu",
          "replaces": "radar_depth_tpu/ops/pallas_kernels.py:251",
          "launches": launches[KERNELS["B"]],
+         "launches_harness": harness["launches"][KERNELS["B"]],
          "max_abs_err": max(epi_err.values()),
          "ms": stem["ms"], "plain_ms": stem["plain_ms"],
          "bound_ms": stem["bound_ms"], "bound_by": "bytes",
@@ -1052,6 +1358,7 @@ def main(argv=None) -> int:
          "source": "radar_depth_tpu_torch/csrc/zbuffer_sorted.cu",
          "replaces": "radar_depth_tpu/ops/pallas_kernels.py:176",
          "launches": train_launches["float32"][KERNELS["C"]],
+         "launches_harness": harness["launches"][KERNELS["C"]],
          "max_abs_err": 0.0,
          "ms": radar["ms"], "ms_cold": radar["ms_cold"],
          "ms_back_to_back": radar["ms_back_to_back"],
@@ -1069,9 +1376,11 @@ def main(argv=None) -> int:
                        "launches": {"serve": launches,
                                     "serve_scatter": launches_sc,
                                     "train": train_launches,
-                                    "eval": ev["launches"]},
+                                    "eval": ev["launches"],
+                                    "harness": harness["launches"]},
                        "train": train, "eval": ev, "profile": prof,
                        "profile_train": prof_train,
+                       "harness": harness, "profile_harness": prof_harness,
                        "summary": summary}, f, indent=1)
     emit(summary)
     print(smi, flush=True)

@@ -2,11 +2,13 @@
 
 A second package beside the JAX one, which stays the reference: the same
 serving path (raw schema batch -> radar z-buffer -> two-stage
-``resnet18_multistage`` forward) and the same train and eval steps
-(on-device augmentation -> train-mode forward -> masked multistage loss ->
-SGD), in PyTorch, with every Pallas kernel on those paths replaced by a
-hand-written CUDA C++ kernel for ``sm_90a`` (``csrc/*.cu``, built with
-``nvcc`` at first use, bound with ``ctypes``).
+``resnet18_multistage`` forward), the same train and eval steps
+(augmentation -> train-mode forward -> masked multistage loss -> SGD) and
+the same training harness (``train/main.py``: Trainer, checkpoints, packed
+shards through the native loader, the JAX package's CLI), in PyTorch, with
+every Pallas kernel on those paths replaced by a hand-written CUDA C++
+kernel for ``sm_90a`` (``csrc/*.cu``, built with ``nvcc`` at first use,
+bound with ``ctypes``).
 
 The package imports ``torch`` and numpy, never ``jax`` and nothing of
 ``radar_depth_tpu``. Entry points (``inference.Predictor``,
@@ -22,6 +24,9 @@ model lives.
     from radar_depth_tpu_torch.train.step import make_train_step
     step = make_train_step(model, spec, train_cfg)
     sums = step(state, batch, generator=torch.Generator("cuda"))
+
+    # python -m radar_depth_tpu_torch.train.main --dataset packed
+    #     --data-root DIR --output-dir RUN [--platform cpu]
 
 This module imports nothing heavy.
 """

@@ -6,6 +6,9 @@ The port's module names mirror the flax tree, so conversion is mechanics:
   batch_stats a/b/mean, a/b/var     -> "a.b.running_mean", "a.b.running_var"
 The input is the JAX package's ``{params, batch_stats}`` as nested dicts of
 numpy arrays (or anything ``np.asarray`` reads); nothing of JAX is imported.
+``optimizer_state_from_jax`` carries optax's SGD momentum (the ``trace``,
+params-shaped) across the same way, into ``torch.optim.SGD``'s
+``momentum_buffer``s: both packages' SGD keep v = mu*v + (g + wd*p).
 """
 
 from __future__ import annotations
@@ -65,3 +68,19 @@ def state_dict_from_jax_variables(
                 raise ValueError(f"{k}: shape {tuple(sd[k].shape)} != "
                                  f"{tuple(t.shape)}")
     return sd
+
+
+def optimizer_state_from_jax(opt_state_trace: Mapping, like) -> Dict[str, Any]:
+    """optax's SGD ``trace`` (nested dicts of numpy, flax names, the shape
+    of ``params``) -> a state_dict for ``like.optimizer``, ``like`` the
+    port's ``train.state.TrainState``: one float32 ``momentum_buffer`` per
+    parameter of ``like.model``, in its parameter order, and the optimizer's
+    own param_groups. Raises on a missing or extra key or a shape
+    mismatch."""
+    names = [n for n, _ in like.model.named_parameters()]
+    bufs = state_dict_from_jax_variables(
+        {"params": opt_state_trace},
+        like={n: p.detach() for n, p in like.model.named_parameters()})
+    return {"state": {i: {"momentum_buffer": bufs[n]}
+                      for i, n in enumerate(names)},
+            "param_groups": like.optimizer.state_dict()["param_groups"]}

@@ -17,6 +17,9 @@ flax's modules do: training keeps float32 weights and casts them per call.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -169,8 +172,29 @@ def max_pool_torch(x: torch.Tensor, window: int = 3, stride: int = 2,
     return F.max_pool2d(x, window, stride, padding)
 
 
+@functools.lru_cache(maxsize=None)
+def _interp_matrix(out_size: int, in_size: int, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """Row-stochastic (out, in) bilinear interpolation matrix, half-pixel
+    centers with edge clamping (the JAX package's ``_interp_matrix``), built
+    once per shape, dtype and device."""
+    scale = in_size / out_size
+    src = (np.arange(out_size) + 0.5) * scale - 0.5
+    lo = np.floor(src).astype(int)
+    frac = src - lo
+    m = np.zeros((out_size, in_size), np.float32)
+    np.add.at(m, (np.arange(out_size), np.clip(lo, 0, in_size - 1)), 1.0 - frac)
+    np.add.at(m, (np.arange(out_size), np.clip(lo + 1, 0, in_size - 1)), frac)
+    with torch.inference_mode(False):  # cached: must serve autograd too
+        return torch.from_numpy(m).to(device=device, dtype=dtype)
+
+
 def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Bilinear resize with half-pixel centers and edge clamping
-    (align_corners=False), in x's dtype: the JAX ``resize_bilinear_matmul``."""
-    return F.interpolate(x, size=(height, width), mode="bilinear",
-                         align_corners=False)
+    (align_corners=False), in x's dtype, as two separable matmuls y = R_h x
+    R_w^T: the JAX ``resize_bilinear_matmul``. Its backward is two matmuls
+    as well, so a train step is deterministic on the card, where
+    ``F.interpolate``'s backward adds with atomics."""
+    rh = _interp_matrix(height, x.shape[2], x.dtype, x.device)
+    rw = _interp_matrix(width, x.shape[3], x.dtype, x.device)
+    return torch.matmul(torch.matmul(rh, x), rw.t())

@@ -60,8 +60,10 @@ class PreprocessConfig:
 
 
 def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
-    """Raw schema batch of numpy arrays -> tensors on ``device``."""
-    return {k: torch.as_tensor(np.require(v, requirements="W"), device=device)
+    """Raw schema batch of numpy arrays (or tensors) -> tensors on
+    ``device``."""
+    return {k: v.to(device) if isinstance(v, torch.Tensor)
+            else torch.as_tensor(np.require(v, requirements="W"), device=device)
             for k, v in batch.items()}
 
 

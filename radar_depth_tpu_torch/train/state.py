@@ -12,7 +12,7 @@ follows the reference's step decay, set on the optimizer before each update.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable, Dict, Mapping
 
 import torch
 from torch import nn
@@ -41,6 +41,39 @@ class TrainState:
     optimizer: torch.optim.SGD
     schedule: Callable[[int], float]
     step: int = 0
+
+
+def _host_copy(tree):
+    """``tree`` with every tensor copied to the host: a snapshot that the
+    next in-place update of the model does not reach."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    return tree
+
+
+def state_to_dict(state: TrainState) -> Dict[str, Any]:
+    """{model, optimizer, step}: the model's state_dict (parameters and BN
+    running statistics), the optimizer's (momentum buffers) and the step
+    count, copied to the host before this returns (the train step updates
+    the model in place, as the JAX step donates its buffers)."""
+    return {"model": _host_copy(state.model.state_dict()),
+            "optimizer": _host_copy(state.optimizer.state_dict()),
+            "step": int(state.step)}
+
+
+def load_state_dict(state: TrainState, payload: Mapping[str, Any]
+                    ) -> TrainState:
+    """Inverse of ``state_to_dict``, into ``state`` in place: strict on the
+    model's keys and shapes; the optimizer state moves to the parameters'
+    device."""
+    state.model.load_state_dict(payload["model"])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.step = int(payload["step"])
+    return state
 
 
 def create_train_state(model: nn.Module, cfg: OptimConfig,

@@ -6,7 +6,9 @@ augmentation (kernel C z-buffers the augmented radar, and with
 train mode -> masked multistage loss -> backward -> SGD update, with metric
 sums on the device. The eval step runs the eval-mode forward (kernel B at
 every BN->ReLU) on the eval preprocessing. Raw schema batches go in; the
-steps return dicts of device scalars and do not wait for the card.
+steps return dicts of device scalars and do not wait for the card. With
+``host_augmented=True`` the batch comes augmented from the native loader's
+threads and the train step takes the eval preprocessing.
 
 The model is the state: a step updates its parameters and BN running
 statistics in place, where the JAX step returns new ones.
@@ -67,14 +69,19 @@ def _loss_and_pred(out, target, cfg: TrainConfig, spec: ArchSpec, rgb=None):
 
 
 def make_micro_grad_fn(model: torch.nn.Module, spec: ArchSpec,
-                       cfg: TrainConfig, plain: bool = False) -> Callable:
+                       cfg: TrainConfig, plain: bool = False,
+                       host_augmented: bool = False) -> Callable:
     """One micro-batch of the train step without the optimizer update:
     ``micro_grads(batch, aug_params=None, generator=None) -> (grads, sums)``
     with ``grads`` {parameter name: gradient}. The forward runs in train
     mode, so the model's BN running statistics move, in place.
 
     The augmentation parameters are ``aug_params`` or drawn from
-    ``generator`` (``ops/preprocess.py::prepare_train_batch``). ``plain=True``
+    ``generator`` (``ops/preprocess.py::prepare_train_batch``). With
+    ``host_augmented=True`` the batch was augmented already, by the native
+    loader's threads (``data/packed.py::NativeBatchLoader(augment=...)``),
+    so the step runs the eval preprocessing (the radar through the z-buffer,
+    the GT the stored ``lidar_depth`` map) and draws nothing. ``plain=True``
     runs the z-buffer's plain version (the reference on the card); kernel B
     does not run in train mode."""
     pre = make_preprocess_config(cfg)
@@ -83,8 +90,11 @@ def make_micro_grad_fn(model: torch.nn.Module, spec: ArchSpec,
     def micro_grads(batch: Dict, aug_params=None,
                     generator: torch.Generator | None = None):
         model.train()
-        prepared = prepare_train_batch(batch, pre, aug_params, generator,
-                                       _device(model), plain)
+        if host_augmented:
+            prepared = prepare_eval_batch(batch, pre, _device(model), plain)
+        else:
+            prepared = prepare_train_batch(batch, pre, aug_params, generator,
+                                           _device(model), plain)
         target = prepared["target"]
         out = model(*pack_model_inputs(prepared, spec.input_kind))
         loss, pred = _loss_and_pred(out, target, cfg, spec)
@@ -98,9 +108,11 @@ def make_micro_grad_fn(model: torch.nn.Module, spec: ArchSpec,
 
 
 def make_train_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
-                    plain: bool = False) -> Callable:
+                    plain: bool = False,
+                    host_augmented: bool = False) -> Callable:
     """``train_step(state, batch, generator=None, aug_params=None) -> sums``
     for ``state.model is model``; advances ``state`` in place.
+    ``host_augmented``: see ``make_micro_grad_fn``.
 
     With ``cfg.optim.grad_accum`` = N > 1 the batch's leaves are stacked
     (N, B, ...) and ``aug_params``, if given, is a sequence of N parameter
@@ -108,7 +120,7 @@ def make_train_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
     to the next, their gradients averaged into one update; the metric sums
     add up and the loss is divided by N, so its scale matches the plain
     step."""
-    micro_grads = make_micro_grad_fn(model, spec, cfg, plain)
+    micro_grads = make_micro_grad_fn(model, spec, cfg, plain, host_augmented)
     accum = max(1, cfg.optim.grad_accum)
 
     def apply_update(state: TrainState, grads: Dict[str, torch.Tensor]):
@@ -166,3 +178,21 @@ def make_eval_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
         return sums
 
     return eval_step
+
+
+def make_predict_fn(model: torch.nn.Module, spec: ArchSpec,
+                    cfg: TrainConfig) -> Callable:
+    """``predict(batch) -> {rgb, radar, target, pred}``, all (B, H, W, .)
+    on the device: the eval preprocessing and the eval-mode forward, with the
+    served output (``blend_tau``), for the comparison panels."""
+    pre = make_preprocess_config(cfg)
+
+    @torch.no_grad()
+    def predict(batch: Dict) -> Dict[str, torch.Tensor]:
+        prepared = prepare_eval_batch(batch, pre, _device(model))
+        out = model.eval()(*pack_model_inputs(prepared, spec.input_kind))
+        _, pred = _loss_and_pred(out, prepared["target"], cfg, spec,
+                                 rgb=prepared["rgb"])
+        return dict(prepared, pred=pred)
+
+    return predict
