@@ -28,8 +28,27 @@ Phases, each printing one JSON line:
                  path against the plain path on the card (TF32 off) and
                  against the CPU on a small input; img/s of both backends and
                  peak memory
+  profile        device time by kernel category over one B=8 predict call
+  zoo            the rest of the registry at full width (bfloat16, B=8,
+                 seeded random weights), each through Predictor with its
+                 kernel B sites per forward checked against the module
+                 structure and its launches counted, img/s and peak memory,
+                 float32 parity of the kernel path against the plain path
+                 (TF32 off): resnet34_latefusion (5 sweeps), resnet18 rgbd
+                 and rgb (1 sweep), resnet50_multistage (profiled: kernel B's
+                 share of device time), resnet18_latefusion with deconv2,
+                 deconv3 and upconv; bf16 train steps (loss finite and
+                 falling, launches, img/s, peak memory) of resnet34_latefusion,
+                 resnet18 rgbd, resnet50_multistage, resnet18_multistage with
+                 stage2_coarse and as _uncertainty, resnet18 rgbd under
+                 --sparsifier uar (no z-buffer launch); the flagship's step
+                 with and without --remat from the same weights, BN running
+                 statistics after one step bit-equal; whether a DeConv
+                 decoder's bf16 train step repeats bit for bit, with cuDNN's
+                 default and its deterministic algorithms
   epilogue       kernel B against its plain version at every (shape, residual)
-                 the flagship gives it at B=8, in bfloat16 and float32
+                 that the flagship and the zoo give it at B=8, in bfloat16
+                 and float32: bit-equal, warm ms against the bytes bound
   train          the flagship's train step at B=8 on SyntheticNuScenes(seed=0):
                  10 float32 and 10 bfloat16 steps on a repeated batch (loss
                  finite and falling), 3 steps with gt_augment="rerasterize",
@@ -39,7 +58,6 @@ Phases, each printing one JSON line:
                  CPU on a small input
   eval           make_eval_step on B=8: launch counts, metric sums against
                  the plain path
-  profile        device time by kernel category over one B=8 predict call
   profile_train  the same over one B=8 train step, float32 and bfloat16
   harness        the training harness at full width (flagship, bfloat16,
                  B=8, 450x800) on packed SyntheticNuScenes shards (48 train,
@@ -52,7 +70,8 @@ Phases, each printing one JSON line:
                  device time per step, epoch walls, checkpoint size and save
                  time, --evaluate img/s
   profile_harness  device time and idle share over one harness train epoch
-Then the kernels' summary line, nvidia-smi's line, and last
+Then the script's wall time, the kernels' summary line (kernel B's with its
+launches per forward for each configuration), nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line;
 without a card, or without the package beside it, it exits non-zero at once.
 Full per-case results go to --out.
@@ -446,14 +465,23 @@ def bf16_ulp(torch, x):
     return torch.where(a > 0, torch.exp2(e - 7), torch.full_like(a, 2.0**-133))
 
 
-def phase_epilogue(torch, dev, sites):
+def phase_epilogue(torch, dev, sites_by_config):
+    """Kernel B against its plain version at every (shape, residual) that
+    the served configurations give it (``sites_by_config``: config name ->
+    the sites of one B=8 forward), in bfloat16 and float32: bit-equal (a
+    signed zero aside), warm and plain ms, and the bytes bound."""
     from radar_depth_tpu_torch.ops import kernels
 
+    per_site = {}
+    for name, sites in sites_by_config.items():
+        for site in sites:
+            counts = per_site.setdefault(site, {})
+            counts[name] = counts.get(name, 0) + 1
     g = torch.Generator(device=dev).manual_seed(1)
-    shapes = sorted(set(sites), key=lambda s: (-math.prod(s[0]), s[1]))
+    shapes = sorted(per_site, key=lambda s: (-math.prod(s[0]), s[1]))
     results, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
-    for dtype, dname in ((torch.bfloat16, "bfloat16"),
-                         (torch.float32, "float32")):
+    for dtype, dname, idtype in ((torch.bfloat16, "bfloat16", torch.int16),
+                                 (torch.float32, "float32", torch.int32)):
         for shape, has_res in shapes:
             c = shape[1]
             mk = lambda: torch.randn(shape, generator=g, device=dev).to(
@@ -465,19 +493,24 @@ def phase_epilogue(torch, dev, sites):
             got = kernels.scale_bias_relu(x, scale, bias, res)
             want = kernels.scale_bias_relu_reference(x, scale, bias, res)
             err = (got.float() - want.float()).abs()
-            tol = (FP32_ABS_TOL if dtype == torch.float32
-                   else bf16_ulp(torch, want))
-            if not bool((err <= tol).all()):
+            # bit-equal, except that a zero may differ in its sign
+            bits_differ = got.view(idtype) != want.view(idtype)
+            signed_zeros = int((bits_differ & (got == 0) & (want == 0)).sum())
+            if int(bits_differ.sum()) != signed_zeros:
                 raise AssertionError(
-                    f"epilogue {dname} {shape} res={has_res}: max err "
-                    f"{float(err.max())} over tolerance")
+                    f"epilogue {dname} {shape} res={has_res}: "
+                    f"{int(bits_differ.sum()) - signed_zeros} values differ "
+                    f"from the plain version in their bits (max err "
+                    f"{float(err.max())})")
             max_err[dname] = max(max_err[dname], float(err.max()))
             elem = 2 if dtype == torch.bfloat16 else 4
             nbytes = x.numel() * elem * (3 if has_res else 2) + 2 * c * 4
             results.append({
                 "dtype": dname, "shape_nchw": list(shape),
                 "residual": has_res, "max_abs_err": float(err.max()),
-                "sites_per_forward": sites.count((shape, has_res)),
+                "bit_equal": signed_zeros == 0,
+                "signed_zero_diffs": signed_zeros,
+                "sites_per_forward": per_site[(shape, has_res)],
                 "ms": cuda_ms(torch, lambda: kernels.scale_bias_relu(
                     x, scale, bias, res)),
                 "plain_ms": cuda_ms(torch, lambda: kernels.
@@ -485,8 +518,8 @@ def phase_epilogue(torch, dev, sites):
                                                               res)),
                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
     emit({"phase": "epilogue", "cases": len(results), "max_abs_err": max_err,
-          "tolerance": {"float32": FP32_ABS_TOL,
-                        "bfloat16": "one bf16 ulp of the plain result"}})
+          "configs": sorted(sites_by_config),
+          "check": "bit-equal to the plain version (signed zeros aside)"})
     return results, max_err
 
 
@@ -668,16 +701,21 @@ def train_init(torch, model, seed):
     and bias 0 (a freshly initialised BN), and the 3x3 heads made positive
     and scaled up so the first predictions are positive depths of tens of
     meters (the CPU parity tests start from the same kind of weights)."""
-    from radar_depth_tpu_torch.models import BatchNorm, init_random
+    from radar_depth_tpu_torch.models import (
+        BatchNorm,
+        head_weight_names,
+        init_random,
+    )
 
     init_random(model, seed)
+    heads = head_weight_names(model)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, BatchNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
         for name, p in model.named_parameters():
-            if name.endswith("conv3.weight"):
+            if name in heads:
                 p.abs_().mul_(50.0)
     return model
 
@@ -980,6 +1018,275 @@ def phase_profile_train(torch, dev, trained, batch):
             out[dtype] = profile_device(torch, one_step,
                                         f"profile_train_{dtype}", B_TRAIN)
     return out
+
+
+# ------------------------------------------------------------- the zoo
+
+# The rest of the registry at full width (450x800, bfloat16, B=8, seeded
+# random weights). Served: ``sites`` is kernel B's sites per forward counted
+# from the module structure (an encoder's stem and 2 per BasicBlock or 3 per
+# Bottleneck, 2 per UpProj block, 1 per DeConv or UpConv block); ``steps``
+# bf16 train steps follow (0: serving and parity only); ``baseline`` is the
+# BASELINE.json configuration.
+ZOO_SERVE = [
+    dict(name="resnet34_latefusion", arch="resnet34_latefusion", sweeps=5,
+         sites=74, steps=5, baseline=3),
+    dict(name="resnet18_rgbd", arch="resnet18", modality="rgbd", sweeps=1,
+         sites=25, steps=5, baseline=2),
+    dict(name="resnet18_rgb", arch="resnet18", modality="rgb", sweeps=1,
+         sites=25, steps=0, baseline=1),
+    dict(name="resnet50_multistage", arch="resnet50_multistage", sweeps=5,
+         sites=212, steps=3, profile=True),
+    *(dict(name=f"resnet18_latefusion_{d}", arch="resnet18_latefusion",
+           decoder=d, sweeps=5, sites=38, steps=0)
+      for d in ("deconv2", "deconv3", "upconv")),
+]
+# Trained only: the multistage options and the sparsifier modality.
+ZOO_TRAIN = [
+    dict(name="resnet18_multistage_stage2_coarse", arch="resnet18_multistage",
+         stage2_coarse=True, sweeps=5, steps=3),
+    dict(name="resnet18_multistage_uncertainty",
+         arch="resnet18_multistage_uncertainty", sweeps=5, steps=3),
+    dict(name="resnet18_rgbd_uar", arch="resnet18", modality="rgbd",
+         sparsifier="uar", sweeps=1, steps=2),
+]
+REMAT = dict(name="resnet18_multistage_remat", arch="resnet18_multistage",
+             sweeps=5, steps=3)
+
+
+def zoo_config(entry, dtype="bfloat16", **over):
+    """The TrainConfig of a zoo entry at full width, B=8."""
+    from radar_depth_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+
+    e = dict(entry, **over)
+    return TrainConfig(
+        data=DataConfig(height=H, width=W, num_sweeps=e["sweeps"],
+                        sparsifier=e.get("sparsifier", "none")),
+        model=ModelConfig(arch=e["arch"], dtype=dtype,
+                          decoder=e.get("decoder", "upproj"),
+                          modality=e.get("modality", "rgbd"),
+                          stage2_coarse=e.get("stage2_coarse", False),
+                          remat=e.get("remat", False)),
+        batch_size=B_TRAIN)
+
+
+def with_sweeps(batch, n, sweeps):
+    """The first ``n`` samples with their first ``sweeps`` radar sweeps."""
+    return {k: v[:n, :sweeps] if k.startswith("radar_") else v[:n]
+            for k, v in batch.items()}
+
+
+def zoo_serve(torch, np, dev, entry, batch):
+    """Predictor.predict of one zoo entry, counted; img/s and peak memory;
+    float32 parity of the kernel path against the plain path (TF32 off)."""
+    from radar_depth_tpu_torch.config import serve_config
+    from radar_depth_tpu_torch.inference import Predictor
+    from radar_depth_tpu_torch.models import init_random
+    from radar_depth_tpu_torch.train.loop import build_model
+
+    cfg = serve_config(zoo_config(entry))
+    sd = init_random(build_model(zoo_config(entry, "float32"), "cpu")[0],
+                     0).state_dict()
+    b8 = with_sweeps(batch, B_SERVE, entry["sweeps"])
+    pred = Predictor(cfg, sd, device=dev)
+    pred.predict(b8)  # warm-up: cuDNN set-up for these shapes
+    sites = record_epilogue_sites(torch, pred, b8)
+    if len(sites) != entry["sites"]:
+        raise AssertionError(f"zoo {entry['name']}: {len(sites)} kernel B "
+                             f"sites per forward, expected {entry['sites']}")
+
+    # the main path, counted
+    calls = 2
+    reset_launches()
+    outs = [pred.predict(b8) for _ in range(calls)]
+    launches = read_launches()
+    want = {KERNELS["A"]: 0, KERNELS["B"]: entry["sites"] * calls,
+            KERNELS["C"]: calls}
+    if launches != want:
+        raise AssertionError(f"zoo {entry['name']}: launches {launches}, "
+                             f"expected {want}")
+    for out in outs:
+        if out.shape != (B_SERVE, H, W) or not np.isfinite(out).all():
+            raise AssertionError(f"zoo {entry['name']}: prediction shape "
+                                 f"{out.shape} or non-finite values")
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        pred.predict(b8)
+        times.append(time.perf_counter() - t0)
+    r = {"phase": "zoo", "config": entry["name"], "arch": cfg.arch,
+         "decoder": cfg.decoder, "modality": cfg.modality,
+         "sweeps": cfg.num_sweeps, "baseline": entry.get("baseline"),
+         "dtype": cfg.dtype, "hw": [H, W], "batch": B_SERVE,
+         "launches": launches, "sites_per_forward": len(sites),
+         "repeat_bit_equal": bool(np.array_equal(outs[0], outs[1])),
+         "serve_img_per_s": B_SERVE / statistics.median(times),
+         "serve_ms_per_call_all": [t * 1e3 for t in times],
+         "serve_peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    prof = None
+    if entry.get("profile"):
+        prof = profile_device(torch, lambda: pred.predict(b8),
+                              f"profile_zoo_{entry['name']}", B_SERVE)
+        busy = prof["device_busy_ms"]
+        r["kernel_B_device_ms"] = prof["device_ms_by_category"].get(
+            "kernel_B_epilogue", 0.0)
+        r["kernel_B_share_of_device"] = r["kernel_B_device_ms"] / busy
+    del pred
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with tf32(torch, False):
+        k32 = Predictor(cfg32, sd, device=dev).predict(b8)
+        p32 = Predictor(cfg32, sd, device=dev, plain=True).predict(b8)
+    torch.cuda.empty_cache()
+    r.update({"fp32_kernels_vs_plain_max_abs": float(np.abs(k32 - p32).max()),
+              "fp32_kernels_vs_plain_rel_rmse": rel_rmse(np, k32, p32),
+              "bf16_vs_fp32_plain_rel_rmse": rel_rmse(np, outs[0], p32),
+              "pred_mean_m": float(p32.mean()),
+              "pred_std_m": float(p32.std())})
+    if r["fp32_kernels_vs_plain_rel_rmse"] > PARITY_REL_RMSE_TOL:
+        raise AssertionError(f"zoo {entry['name']}: float32 parity {r}")
+    return r, sites, prof
+
+
+def zoo_train(torch, dev, entry, batch, sd=None):
+    """``entry['steps']`` bf16 train steps at B=8 on one batch (the same
+    augmentation or sparsifier draws each step), counted: the loss finite
+    and falling, img/s and peak memory. Returns the results, the model's BN
+    running statistics after the first step, and its launches."""
+    from radar_depth_tpu_torch.train.loop import build_model
+    from radar_depth_tpu_torch.train.state import create_train_state
+    from radar_depth_tpu_torch.train.step import make_train_step
+
+    cfg = zoo_config(entry)
+    model, spec = build_model(cfg, dev)
+    if sd is None:
+        train_init(torch, model, 0)
+    else:
+        model.load_state_dict(sd)
+    state = create_train_state(model, cfg.optim, steps_per_epoch=32)
+    step = make_train_step(model, spec, cfg)
+    b8 = with_sweeps(batch, B_TRAIN, entry["sweeps"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    losses, times = run_steps(torch, dev, step, state, b8, 1)
+    first_stats = stats_snapshot(model)
+    more, more_t = run_steps(torch, dev, step, state, b8, entry["steps"] - 1)
+    launches = read_launches()
+    losses, times = losses + more, times + more_t
+    per_step = 0 if cfg.data.sparsifier != "none" else 1
+    want = {KERNELS["A"]: 0, KERNELS["B"]: 0,
+            KERNELS["C"]: per_step * entry["steps"]}
+    if launches != want:
+        raise AssertionError(f"zoo train {entry['name']}: launches "
+                             f"{launches}, expected {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"zoo train {entry['name']}: losses {losses}")
+    r = {"train_steps": entry["steps"], "train_launches": launches,
+         "train_losses": losses, "train_step_ms": [t * 1e3 for t in times],
+         "train_img_per_s": B_TRAIN / statistics.median(times[1:]),
+         "train_peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    log_var = getattr(model, "stage_log_var", None)
+    if log_var is not None:
+        r["stage_log_var"] = log_var.detach().cpu().tolist()
+        if not all(math.isfinite(v) and v != 0.0 for v in r["stage_log_var"]):
+            raise AssertionError(f"stage_log_var {r['stage_log_var']}")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return r, first_stats
+
+
+def zoo_remat(torch, dev, batch):
+    """The flagship's bf16 step with and without --remat from the same
+    weights: BN running statistics after one step bit-equal (the recompute
+    leaves them alone), the losses of 3 steps, img/s and peak memory."""
+    from radar_depth_tpu_torch.train.loop import build_model
+
+    sd = train_init(torch, build_model(zoo_config(REMAT), "cpu")[0],
+                    0).state_dict()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {name: zoo_train(torch, dev, dict(REMAT, remat=remat), batch,
+                                sd=sd)
+                for name, remat in (("plain", False), ("remat", True))}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    plain, remat = runs["plain"][1], runs["remat"][1]
+    differ = [k for k, v in plain.items() if not torch.equal(remat[k], v)]
+    if differ:
+        raise AssertionError(f"remat: BN statistics after one step differ "
+                             f"from the plain step's in {differ[:4]}")
+    out = {"phase": "zoo", "config": REMAT["name"],
+           "stats_bit_equal_after_one_step": True, "bn_buffers": len(plain),
+           **{f"{name}_{k}": v for name, (r, _) in runs.items()
+              for k, v in r.items()}}
+    emit(out)
+    return out
+
+
+def zoo_deconv_determinism(torch, dev, batch):
+    """Is a bf16 train step of a DeConv decoder deterministic on the card?
+    resnet18_latefusion with deconv2 and deconv3: the same weights and batch
+    stepped twice, with cuDNN's default algorithms and with its
+    deterministic ones; whether the two runs' parameters are bit-equal."""
+    from radar_depth_tpu_torch.train.loop import build_model
+    from radar_depth_tpu_torch.train.state import create_train_state
+    from radar_depth_tpu_torch.train.step import make_train_step
+
+    out = {"phase": "zoo", "config": "deconv_determinism"}
+    saved = torch.backends.cudnn.deterministic
+    try:
+        for decoder in ("deconv2", "deconv3"):
+            entry = dict(arch="resnet18_latefusion", decoder=decoder,
+                         sweeps=5)
+            cfg = zoo_config(entry)
+            sd = train_init(torch, build_model(cfg, "cpu")[0], 0).state_dict()
+            for det in (False, True):
+                torch.backends.cudnn.deterministic = det
+                params = []
+                for _ in range(2):
+                    model, spec = build_model(cfg, dev)
+                    model.load_state_dict(sd)
+                    state = create_train_state(model, cfg.optim, 32)
+                    run_steps(torch, dev, make_train_step(model, spec, cfg),
+                              state, with_sweeps(batch, B_TRAIN, 5), 1)
+                    params.append(param_snapshot(model))
+                    del model, state
+                differ = [k for k, v in params[0].items()
+                          if not torch.equal(params[1][k], v)]
+                key = f"{decoder}_{'deterministic' if det else 'default'}"
+                out[f"{key}_bit_equal"] = not differ
+                out[f"{key}_tensors_differing"] = differ[:6]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase_zoo(torch, np, dev, batch):
+    """Every entry of ZOO_SERVE (served, counted, float32 parity, then
+    trained if it has steps), of ZOO_TRAIN, and the remat pair."""
+    results, sites, prof = {}, {}, None
+    for entry in ZOO_SERVE:
+        r, sites[entry["name"]], p = zoo_serve(torch, np, dev, entry, batch)
+        prof = p or prof
+        if entry["steps"]:
+            r.update(zoo_train(torch, dev, entry, batch)[0])
+        emit(r)
+        results[entry["name"]] = r
+    for entry in ZOO_TRAIN:
+        r = {"phase": "zoo", "config": entry["name"], "arch": entry["arch"],
+             "sweeps": entry["sweeps"], **zoo_train(torch, dev, entry,
+                                                    batch)[0]}
+        emit(r)
+        results[entry["name"]] = r
+    results[REMAT["name"]] = zoo_remat(torch, dev, batch)
+    results["deconv_determinism"] = zoo_deconv_determinism(torch, dev, batch)
+    return results, sites, prof
 
 
 # ------------------------------------------------------------- harness
@@ -1287,7 +1594,7 @@ def main(argv=None) -> int:
         return 2
 
     dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     built = kernels.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc": built,
@@ -1315,10 +1622,13 @@ def main(argv=None) -> int:
     del flush
     launches, launches_sc, speed, parity, pred, sites = phase_serve(
         torch, np, dev, batch, sd)
-    epi, epi_err = phase_epilogue(torch, dev, sites)
     prof = phase_profile(torch, pred, {k: v[:B_SERVE]
                                        for k, v in batch.items()})
     del pred
+    torch.cuda.empty_cache()
+    zoo, zoo_sites, prof_zoo = phase_zoo(torch, np, dev, batch)
+    epi, epi_err = phase_epilogue(torch, dev, {"resnet18_multistage": sites,
+                                               **zoo_sites})
     train, train_launches, trained = phase_train(torch, np, dev, batch)
     ev = phase_eval(torch, np, dev, batch, trained)
     prof_train = phase_profile_train(torch, dev, trained, batch)
@@ -1350,6 +1660,11 @@ def main(argv=None) -> int:
          "replaces": "radar_depth_tpu/ops/pallas_kernels.py:251",
          "launches": launches[KERNELS["B"]],
          "launches_harness": harness["launches"][KERNELS["B"]],
+         "launches_per_forward": {
+             name: n[KERNELS["B"]] // n[KERNELS["C"]]
+             for name, n in (("resnet18_multistage", launches),
+                             *((k, r["launches"]) for k, r in zoo.items()
+                               if "launches" in r))},
          "max_abs_err": max(epi_err.values()),
          "ms": stem["ms"], "plain_ms": stem["plain_ms"],
          "bound_ms": stem["bound_ms"], "bound_by": "bytes",
@@ -1381,7 +1696,10 @@ def main(argv=None) -> int:
                        "train": train, "eval": ev, "profile": prof,
                        "profile_train": prof_train,
                        "harness": harness, "profile_harness": prof_harness,
+                       "zoo": zoo, "profile_zoo": prof_zoo,
+                       "wall_s": time.perf_counter() - t_start,
                        "summary": summary}, f, indent=1)
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit(summary)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,9 +4,10 @@ and command line, and the serving subset ``ServeConfig``.
 
 A ``config.json`` written by either package loads in the other
 (``save_config`` / ``load_config``). Every flag and choice of the JAX CLI
-parses here; the values the port has not ported yet parse and load, and
-``require_ported`` (called by the Trainer and ``Predictor.from_run``) raises
-``NotImplementedError`` naming the ROADMAP item that ports them.
+parses here and runs, except ``--spatial`` > 1, which parses and loads and
+for which ``require_ported`` (called by the Trainer and
+``Predictor.from_run``) raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from radar_depth_tpu_torch.ops.augment import AugmentConfig
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # The JAX package's registry names and choices, for the CLI (the port's own
-# registry, ``models.ARCH_REGISTRY``, holds the archs ported so far).
+# registry, ``models.ARCH_REGISTRY``, holds the same archs).
 ARCH_NAMES = (
     "resnet18", "resnet34", "resnet50",
     "resnet18_latefusion", "resnet34_latefusion", "resnet50_latefusion",
@@ -44,6 +45,7 @@ def _check_dtype(dtype: str) -> None:
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     arch: str = "resnet18_latefusion"
+    modality: str = "rgbd"  # for single-branch archs: rgb | rgbd | d
     decoder: str = "upproj"
     dtype: str = "float32"  # compute dtype: float32 | bfloat16
     height: int = 450
@@ -56,7 +58,7 @@ class ServeConfig:
     filter_mode: str = "abs"
     abs_threshold: float = 2.0
     rel_threshold: float = 0.15
-    # feed the coarse prediction to stage 2 (not ported: raises)
+    # feed the coarse prediction to stage 2 as a second radar channel
     stage2_coarse: bool = False
     # >0: emit refined where the mean RGB < tau, coarse where brighter
     blend_tau: float = 0.0
@@ -73,17 +75,15 @@ class ServeConfig:
         return DTYPES[self.dtype]
 
     def arch_kwargs(self) -> dict:
-        """The arch-specific ``models.create_model`` arguments: the radar
-        filter of the multistage archs."""
-        if self.stage2_coarse:
-            raise NotImplementedError(
-                "stage2_coarse is not ported to radar_depth_tpu_torch yet "
-                "(ROADMAP Queue A item 9)")
+        """The arch-specific ``models.create_model`` arguments: the
+        modality (which only the single-branch archs read), and the radar
+        filter and ``stage2_coarse`` of the multistage archs."""
         if "multistage" not in self.arch:
-            return {}
-        return dict(filter_mode=self.filter_mode,
+            return dict(modality=self.modality)
+        return dict(modality=self.modality, filter_mode=self.filter_mode,
                     abs_threshold=self.abs_threshold,
-                    rel_threshold=self.rel_threshold)
+                    rel_threshold=self.rel_threshold,
+                    stage2_coarse=self.stage2_coarse)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,25 +184,10 @@ class TrainConfig:
 
 def unported(cfg: TrainConfig) -> List[str]:
     """The settings of ``cfg`` that the port does not run yet, each with the
-    ROADMAP item that ports it."""
-    from radar_depth_tpu_torch.models import ARCH_REGISTRY
-    from radar_depth_tpu_torch.models.decoders import DECODER_KINDS
-
-    m, d = cfg.model, cfg.data
-    out = []
-    if m.arch not in ARCH_REGISTRY:
-        out.append(f"--arch {m.arch} (ROADMAP Queue A item 9)")
-    if m.decoder not in DECODER_KINDS:
-        out.append(f"--decoder {m.decoder} (ROADMAP Queue A item 9)")
-    for flag, on in (("--sparsifier " + d.sparsifier, d.sparsifier != "none"),
-                     ("--remat", m.remat),
-                     ("--stage2-coarse", m.stage2_coarse),
-                     ("--pretrained", bool(m.pretrained))):
-        if on:
-            out.append(f"{flag} (ROADMAP Queue A item 9)")
+    ROADMAP item that ports it: ``--spatial`` alone."""
     if cfg.spatial > 1:
-        out.append(f"--spatial {cfg.spatial} (ROADMAP Queue A item 10)")
-    return out
+        return [f"--spatial {cfg.spatial} (ROADMAP Queue A item 10)"]
+    return []
 
 
 def require_ported(cfg: TrainConfig) -> None:
@@ -217,7 +202,8 @@ def serve_config(cfg: TrainConfig) -> ServeConfig:
     """The serving subset of a training run's config."""
     d, m = cfg.data, cfg.model
     return ServeConfig(
-        arch=m.arch, decoder=m.decoder, dtype=m.dtype, height=d.height,
+        arch=m.arch, modality=m.modality, decoder=m.decoder, dtype=m.dtype,
+        height=d.height,
         width=d.width, num_sweeps=d.num_sweeps, max_depth=d.max_depth,
         height_extension=d.height_extension, raster_backend=d.raster_backend,
         filter_mode=m.filter_mode, abs_threshold=m.abs_threshold,

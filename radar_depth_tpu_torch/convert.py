@@ -4,11 +4,17 @@ The port's module names mirror the flax tree, so conversion is mechanics:
   params    a/b/kernel (kh,kw,I,O)  -> "a.b.weight" (O,I,kh,kw)
   params    a/b/scale, a/b/bias     -> "a.b.weight", "a.b.bias"
   batch_stats a/b/mean, a/b/var     -> "a.b.running_mean", "a.b.running_var"
+  params    name (a top-level leaf, ``stage_log_var``) -> "name"
 The input is the JAX package's ``{params, batch_stats}`` as nested dicts of
 numpy arrays (or anything ``np.asarray`` reads); nothing of JAX is imported.
 ``optimizer_state_from_jax`` carries optax's SGD momentum (the ``trace``,
 params-shaped) across the same way, into ``torch.optim.SGD``'s
 ``momentum_buffer``s: both packages' SGD keep v = mu*v + (g + wd*p).
+
+``graft_pretrained_encoders`` is the port's own copy of ``radar_depth_tpu/
+utils/torch_convert.py::graft_pretrained_encoders`` (``--pretrained``): a
+torchvision ResNet state_dict into every encoder of a model, on torch
+state_dicts.
 """
 
 from __future__ import annotations
@@ -45,17 +51,16 @@ def state_dict_from_jax_variables(
     for col in ("params", "batch_stats"):
         for path, w in _flatten(variables.get(col, {})).items():
             *mods, leaf = path
-            base = ".".join(mods)
             w = np.asarray(w, dtype=np.float32)
             if col == "params" and leaf == "kernel":
                 if w.ndim != 4:
                     raise ValueError(f"{'/'.join(path)}: kernel of rank {w.ndim}")
-                key, w = f"{base}.weight", w.transpose(3, 2, 0, 1)
+                leaf, w = "weight", w.transpose(3, 2, 0, 1)
             elif (col, leaf) in _LEAF:
-                key = f"{base}.{_LEAF[col, leaf]}"
-            else:
+                leaf = _LEAF[col, leaf]
+            elif col != "params" or mods:  # else a parameter of the model
                 raise KeyError(f"unknown {col} leaf {'/'.join(path)}")
-            sd[key] = torch.tensor(w)
+            sd[".".join([*mods, leaf])] = torch.tensor(w)
     if like is not None:
         missing = sorted(set(like) - set(sd))
         extra = sorted(set(sd) - set(like))
@@ -84,3 +89,56 @@ def optimizer_state_from_jax(opt_state_trace: Mapping, like) -> Dict[str, Any]:
     return {"state": {i: {"momentum_buffer": bufs[n]}
                       for i, n in enumerate(names)},
             "param_groups": like.optimizer.state_dict()["param_groups"]}
+
+
+def torchvision_resnet_to_encoder(state_dict: Mapping[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """A torchvision ResNet-18/34/50 state_dict -> the port's encoder names
+    (``layer{s}.{b}.`` -> ``layer{s}_{b}.``, ``downsample.{0,1}`` ->
+    ``downsample_{conv,bn}``), without the classifier (``fc.``) and
+    torchvision's ``num_batches_tracked`` counters."""
+    out = {}
+    for k, v in state_dict.items():
+        if k.startswith("fc.") or k.endswith("num_batches_tracked"):
+            continue
+        for s in range(1, 5):
+            for b in range(6):
+                k = k.replace(f"layer{s}.{b}.", f"layer{s}_{b}.")
+        k = k.replace(".downsample.0.", ".downsample_conv.").replace(
+            ".downsample.1.", ".downsample_bn.")
+        out[k] = torch.as_tensor(v)
+    return out
+
+
+def graft_pretrained_encoders(model_state: Mapping[str, torch.Tensor],
+                              state_dict: Mapping[str, Any]) -> tuple:
+    """Graft a torchvision ResNet state_dict into every encoder of a model
+    (the reference's pretrained=True: all backbone weights from ImageNet; a
+    conv1 whose input channels differ, as the 4-channel early fusion or the
+    1-channel radar branch, keeps its fresh initialisation).
+
+    ``model_state`` is the model's ``state_dict()``. Returns (new state_dict,
+    report) with report a list of (encoder, tensors loaded, skipped), the
+    encoder named as in the flax tree ("stage1/img_encoder") and each
+    skipped tensor as "name (missing)" or "name (shape)", as the JAX
+    function reports them."""
+    src = torchvision_resnet_to_encoder(state_dict)
+    prefixes = sorted({k[:k.index("encoder.") + len("encoder")]
+                       for k in model_state if "encoder." in k})
+    out = dict(model_state)
+    report = []
+    for prefix in prefixes:
+        loaded, skipped = 0, []
+        for key, tmpl in model_state.items():
+            if not key.startswith(prefix + "."):
+                continue
+            name = key[len(prefix) + 1:]
+            if name not in src:
+                skipped.append(f"{name} (missing)")
+            elif tuple(src[name].shape) != tuple(tmpl.shape):
+                skipped.append(f"{name} (shape)")
+            else:
+                out[key] = src[name].to(torch.float32).clone()
+                loaded += 1
+        report.append((prefix.replace(".", "/"), loaded, skipped))
+    return out, report

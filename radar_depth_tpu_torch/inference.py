@@ -96,8 +96,8 @@ class Predictor:
     def _forward(self, batch: Dict):
         prepared = prepare_eval_batch(batch, self._pre, self.device,
                                       plain=self.plain)
-        out = self.model(*pack_model_inputs(prepared,
-                                            self.arch_spec.input_kind))
+        out = self.model(*pack_model_inputs(
+            prepared, self.arch_spec.input_kind, self.cfg.modality))
         pred = out[1] if self.arch_spec.multistage else out
         if self.arch_spec.multistage and self.cfg.blend_tau > 0:
             pred = blend_by_brightness(out[0], out[1], prepared["rgb"],

@@ -17,6 +17,7 @@ flax's modules do: training keeps float32 weights and casts them per call.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -88,6 +89,27 @@ class UnpoolConv(Conv2d):
                                   output_padding=2 * (k // 2) + 2 - k)
 
 
+class ConvTranspose(Conv2d):
+    """Bias-free torch ``ConvTranspose2d`` (flax ``TorchConvTranspose``), the
+    up-sampling conv of the DeConv blocks. The JAX module flips its (k,k,I,O)
+    kernel and convolves the stride-dilated input; the converted weight is
+    (O,I,k,k), and torch's ``conv_transpose2d`` takes (I,O,k,k) unflipped, so
+    the forward swaps the two axes and flips nothing."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 2,
+                 padding: int = 0, output_padding: int = 0,
+                 dtype=torch.float32, param_dtype=None, device=None):
+        super().__init__(cin, cout, kernel_size, stride, padding, dtype=dtype,
+                         param_dtype=param_dtype, device=device)
+        self.output_padding = output_padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(self.dtype).transpose(0, 1)
+        return F.conv_transpose2d(x.to(self.dtype), w, stride=self.stride,
+                                  padding=self.padding,
+                                  output_padding=self.output_padding)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm with flax semantics; the output is in x's dtype.
 
@@ -112,6 +134,9 @@ class BatchNorm(nn.Module):
         self.epsilon = epsilon
         self.momentum = momentum
         self.plain = False
+        # False while a checkpointed stage is recomputed in the backward
+        # (``frozen_running_stats``): flax's remat moves the statistics once
+        self.update_stats = True
         self.weight = _param((channels,), torch.float32, device)
         self.bias = _param((channels,), torch.float32, device)
         self.register_buffer("running_mean", torch.empty(
@@ -126,10 +151,12 @@ class BatchNorm(nn.Module):
     def _train_forward(self, x, relu, residual):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
         mul = torch.rsqrt(var + self.epsilon) * self.weight
         y = ((xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
              + self.bias.view(1, -1, 1, 1)).to(x.dtype)
@@ -164,6 +191,22 @@ def use_plain_kernels(model: nn.Module, plain: bool = True) -> nn.Module:
         if isinstance(m, BatchNorm):
             m.plain = plain
     return model
+
+
+@contextlib.contextmanager
+def frozen_running_stats(model: nn.Module):
+    """Context: the train-mode BNs of ``model`` normalize with batch
+    statistics as always but leave their running statistics alone (the
+    recompute of a checkpointed stage)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    saved = [m.update_stats for m in bns]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, s in zip(bns, saved):
+            m.update_stats = s
 
 
 def max_pool_torch(x: torch.Tensor, window: int = 3, stride: int = 2,

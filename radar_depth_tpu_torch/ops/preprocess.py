@@ -5,7 +5,9 @@ Mirrors ``radar_depth_tpu/ops/preprocess.py`` (``PreprocessConfig``,
 layout at these public functions stays NHWC, as in the JAX package. The
 z-buffer backend is ``raster_backend``, with the JAX package's names and
 default: "sorted" runs the sort and kernel C, "scatter" kernel A
-(``ops/raster.py::rasterize_min_depth``); both give the same bits.
+(``ops/raster.py::rasterize_min_depth``); both give the same bits. With a
+``sparsifier`` the sparse channel is sampled from the LiDAR target
+(``ops/sparsify.py``) and no z-buffer runs.
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ from radar_depth_tpu_torch.ops.raster import (
     extend_height,
     rasterize_min_depth,
 )
+from radar_depth_tpu_torch.ops.sparsify import SPARSIFIERS
+
+SPARSIFIER_NAMES = ("none",) + tuple(SPARSIFIERS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +52,10 @@ class PreprocessConfig:
     # them again (geometrically exact).
     gt_augment: str = "warp"
     raster_backend: str = "sorted"  # z-buffer: "sorted" (kernel C) | "scatter"
+    # "uar" | "sim_stereo": the sparse channel is sampled from the LiDAR GT
+    # (about ``num_samples`` pixels) instead of z-buffering the radar
+    sparsifier: str = "none"
+    num_samples: int = 200
 
     def __post_init__(self):
         if self.raster_backend not in RASTER_BACKENDS:
@@ -57,6 +66,9 @@ class PreprocessConfig:
             raise ValueError(
                 f"gt_augment={self.gt_augment!r}: expected 'warp' or "
                 "'rerasterize'")
+        if self.sparsifier not in SPARSIFIER_NAMES:
+            raise ValueError(f"sparsifier={self.sparsifier!r}: expected one "
+                             f"of {SPARSIFIER_NAMES}")
 
 
 def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -104,18 +116,33 @@ def _rgb(b: Dict[str, torch.Tensor], dev: torch.device) -> torch.Tensor:
 
 def prepare_eval_batch(batch: Dict, cfg: PreprocessConfig,
                        device: str | torch.device | None = None,
-                       plain: bool = False) -> Dict[str, torch.Tensor]:
+                       plain: bool = False,
+                       sparse_u: torch.Tensor | None = None,
+                       generator: torch.Generator | None = None
+                       ) -> Dict[str, torch.Tensor]:
     """Validation-path inputs, no augmentation.
 
     Returns {rgb (B,H,W,3) float32 in [0,1], radar (B,H,W,1), target
     (B,H,W,1)} on ``device`` (the card unless ``device="cpu"``).
     ``plain=True`` runs the z-buffer's plain version (the reference on the
-    card).
+    card). With ``cfg.sparsifier`` the "radar" channel is the sparsified
+    target: its uniform draws are ``sparse_u`` (B,H,W), else drawn from
+    ``generator``, else from a generator seeded 0 (the same draws for every
+    batch, as the JAX package's fixed key).
     """
     dev = resolve_device(device)
     b = to_device(batch, dev)
     target = b["lidar_depth"][..., None].to(torch.float32)
-    radar = _raster(*_radar_uvz(b), cfg, cfg.height_extension, plain)
+    if cfg.sparsifier != "none":
+        if sparse_u is None and generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        radar = SPARSIFIERS[cfg.sparsifier](
+            target[..., 0], cfg.num_samples,
+            u=None if sparse_u is None else torch.as_tensor(sparse_u,
+                                                            device=dev),
+            generator=generator)[..., None]
+    else:
+        radar = _raster(*_radar_uvz(b), cfg, cfg.height_extension, plain)
     return {"rgb": _rgb(b, dev), "radar": radar, "target": target}
 
 
@@ -123,7 +150,9 @@ def prepare_train_batch(batch: Dict, cfg: PreprocessConfig,
                         aug_params: Tuple | None = None,
                         generator: torch.Generator | None = None,
                         device: str | torch.device | None = None,
-                        plain: bool = False) -> Dict[str, torch.Tensor]:
+                        plain: bool = False,
+                        sparse_u: torch.Tensor | None = None
+                        ) -> Dict[str, torch.Tensor]:
     """Training-path inputs with on-device augmentation: per sample a random
     scale s in [1, 1.5], rotation of +-5 degrees, horizontal flip and color
     jitter; the image is warped bilinearly, radar (and with
@@ -134,7 +163,16 @@ def prepare_train_batch(batch: Dict, cfg: PreprocessConfig,
     ``ops/augment.py::sample_affine_params`` returns them, or are drawn from
     ``generator``; one of the two is needed when ``cfg.augment.enabled``.
     Returns the dict of ``prepare_eval_batch``.
+
+    With ``cfg.sparsifier`` the batch takes the eval path, unaugmented, its
+    draws ``sparse_u`` or drawn from ``generator`` (one of the two is
+    needed), as the JAX package trains that modality.
     """
+    if cfg.sparsifier != "none":
+        if sparse_u is None and generator is None:
+            raise ValueError("a sparsifier needs sparse_u or a generator")
+        return prepare_eval_batch(batch, cfg, device, plain, sparse_u,
+                                  generator)
     dev = resolve_device(device)
     b = to_device(batch, dev)
     rgb = _rgb(b, dev)
@@ -170,11 +208,20 @@ def prepare_train_batch(batch: Dict, cfg: PreprocessConfig,
     return {"rgb": rgb, "radar": radar, "target": target}
 
 
-def pack_model_inputs(prepared: Dict[str, torch.Tensor],
-                      input_kind: str) -> Tuple:
+def pack_model_inputs(prepared: Dict[str, torch.Tensor], input_kind: str,
+                      modality: str = "rgbd") -> Tuple:
     """Model positional inputs from a prepared batch: (rgb, radar) for the
-    late-fusion archs, the only ones ported so far (the single-branch
-    modalities wait for the rest of the zoo)."""
-    if input_kind != "late":
-        raise ValueError(f"input kind {input_kind!r} is not ported")
-    return prepared["rgb"], prepared["radar"]
+    late-fusion archs; for the single-branch ones (rgb,), (concat(rgb,
+    radar),) or (radar,) by ``modality`` (rgb | rgbd | d)."""
+    rgb, radar = prepared["rgb"], prepared["radar"]
+    if input_kind == "late":
+        return rgb, radar
+    if input_kind != "single":
+        raise ValueError(f"unknown input kind {input_kind!r}")
+    if modality == "rgb":
+        return (rgb,)
+    if modality == "rgbd":
+        return (torch.cat([rgb, radar], dim=-1),)
+    if modality == "d":
+        return (radar,)
+    raise ValueError(f"unknown modality {modality!r}")

@@ -39,7 +39,12 @@ from radar_depth_tpu_torch.data.synthetic import SyntheticNuScenes
 from radar_depth_tpu_torch.device import resolve_device
 from radar_depth_tpu_torch.metrics import AverageMeter, finalize_metrics
 from radar_depth_tpu_torch.models import create_model
-from radar_depth_tpu_torch.models.layers import BatchNorm, Conv2d, UnpoolConv
+from radar_depth_tpu_torch.models.layers import (
+    BatchNorm,
+    Conv2d,
+    ConvTranspose,
+    UnpoolConv,
+)
 from radar_depth_tpu_torch.train import checkpoint as ckpt_lib
 from radar_depth_tpu_torch.train.state import create_train_state
 from radar_depth_tpu_torch.train.step import (
@@ -97,17 +102,34 @@ def iterate_batches(dataset, batch_size: int, shuffle: bool, seed: int,
         yield dataset.batch(order[i: i + batch_size])
 
 
+def build_model(cfg: TrainConfig, device) -> tuple:
+    """(model, ArchSpec) of a run on ``device``: float32 weights computing
+    in ``cfg.model.dtype``, with the arch flags of ``serve_config`` and, for
+    the multistage archs, ``--remat``."""
+    kw = serve_config(cfg).arch_kwargs()
+    if "multistage" in cfg.model.arch:
+        kw["remat"] = cfg.model.remat
+    return create_model(cfg.model.arch, device=device,
+                        decoder=cfg.model.decoder,
+                        output_size=(cfg.data.height, cfg.data.width),
+                        dtype=cfg.model.torch_dtype,
+                        param_dtype=torch.float32, **kw)
+
+
 def init_model(model: nn.Module, seed: int) -> nn.Module:
     """Fresh weights with flax's initializers, drawn from a CPU generator
-    seeded ``seed``: convs truncated-normal lecun (fan-in), the unpool convs
-    He; BN scale 1, bias 0, running mean 0, variance 1."""
+    seeded ``seed``: convs truncated-normal lecun (fan-in), the unpool and
+    transposed convs He; BN scale 1, bias 0, running mean 0, variance 1;
+    the uncertainty archs' ``stage_log_var`` 0."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
+        if getattr(model, "stage_log_var", None) is not None:
+            model.stage_log_var.zero_()
         for m in model.modules():
             if isinstance(m, Conv2d):
                 w = m.weight
                 fan_in = w.shape[1] * w.shape[2] * w.shape[3]
-                gain = 2.0 if isinstance(m, UnpoolConv) else 1.0
+                gain = 2.0 if isinstance(m, (UnpoolConv, ConvTranspose)) else 1.0
                 # the std of a unit normal truncated at +-2
                 std = math.sqrt(gain / fan_in) / 0.87962566103423978
                 v = torch.empty(w.shape, dtype=torch.float32)
@@ -120,6 +142,25 @@ def init_model(model: nn.Module, seed: int) -> nn.Module:
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
     return model
+
+
+def widen_to_template(template: torch.Tensor, src: torch.Tensor,
+                      name: str = "") -> torch.Tensor:
+    """``src`` in ``template``'s shape: equal shapes copy; a conv weight
+    (O, I, kh, kw) whose input-channel axis is wider in ``template`` gets
+    zeros on the extra channels (``radar_depth_tpu/train/loop.py::
+    _widen_to_template``). Any other mismatch raises."""
+    if template.shape == src.shape:
+        return src
+    if (template.dim() == src.dim() == 4 and template.shape[0] == src.shape[0]
+            and template.shape[2:] == src.shape[2:]
+            and template.shape[1] > src.shape[1]):
+        pad = torch.zeros((src.shape[0], template.shape[1] - src.shape[1],
+                           *src.shape[2:]), dtype=src.dtype)
+        return torch.cat([src, pad], dim=1)
+    raise ValueError(
+        f"stage checkpoint {name}: shape {tuple(src.shape)} does not fit "
+        f"{tuple(template.shape)} (only input-channel widening is supported)")
 
 
 def _fetch(sums: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -157,11 +198,7 @@ class Trainer:
                   f"(reference Result.evaluate), so --eval-batch-size "
                   f"{cfg.eval_batch_size} != {cfg.batch_size} shifts "
                   "rmse/irmse vs reference-batch-size numbers")
-        self.model, self.arch_spec = create_model(
-            cfg.model.arch, device=self.device, decoder=cfg.model.decoder,
-            output_size=(cfg.data.height, cfg.data.width),
-            dtype=cfg.model.torch_dtype, param_dtype=torch.float32,
-            **serve_config(cfg).arch_kwargs())
+        self.model, self.arch_spec = build_model(cfg, self.device)
         if cfg.optim.grad_accum < 1:
             raise ValueError(f"grad_accum={cfg.optim.grad_accum} must be >= 1")
         self._accum = cfg.optim.grad_accum
@@ -191,6 +228,8 @@ class Trainer:
                   f"augmentation in the step ({native_error()})")
 
         init_model(self.model, cfg.seed)
+        if cfg.model.pretrained:
+            self._load_pretrained(cfg.model.pretrained)
         self.state = create_train_state(self.model, cfg.optim,
                                         steps_per_epoch)
         self._train_step = make_train_step(
@@ -223,6 +262,23 @@ class Trainer:
         self.saves: list = []  # per checkpoint: times and bytes
         self._watchdog = None
 
+    def _load_pretrained(self, path: str):
+        """--pretrained FILE: a torchvision ImageNet ResNet state_dict (a
+        ``torch.save`` file on disk; nothing is downloaded) grafted into
+        every encoder (``convert.graft_pretrained_encoders``)."""
+        from radar_depth_tpu_torch.convert import graft_pretrained_encoders
+
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if hasattr(sd, "state_dict"):
+            sd = sd.state_dict()
+        grafted, report = graft_pretrained_encoders(self.model.state_dict(),
+                                                    sd)
+        self.model.load_state_dict(grafted)
+        self.pretrained_report = report
+        for subtree, loaded, skipped in report:
+            note = f"; skipped {len(skipped)}: {skipped[:3]}" if skipped else ""
+            print(f"pretrained: {subtree}: loaded {loaded} tensors{note}")
+
     # ------------------------------------------------------------- resume
 
     def maybe_resume(self):
@@ -243,23 +299,27 @@ class Trainer:
     def maybe_init_from_stage1(self):
         """Two-phase training: with --stage1-path pointing at a late-fusion
         run, both stages of a multistage arch start from its best (else
-        latest) checkpoint."""
+        latest) checkpoint. A ``stage2_coarse`` stage 2's wider radar conv1
+        gets the checkpoint's kernel with zeros on the new input channel
+        (``widen_to_template``), so it computes what a 1-channel graft
+        computes."""
         if not self.cfg.model.stage1_path or not self.arch_spec.multistage:
             return
         src, step_dir = self._load_model_from(self.cfg.model.stage1_path)
         sd = self.model.state_dict()
+        new = {}
         for stage in ("stage1", "stage2"):
             want = {k[len(stage) + 1:] for k in sd
                     if k.startswith(stage + ".")}
-            if set(src) != want or any(
-                    src[k].shape != sd[f"{stage}.{k}"].shape for k in src):
+            if set(src) != want:
                 raise ValueError(
                     f"stage1 checkpoint {step_dir} does not match a "
                     f"{self.cfg.model.arch} stage (is it a late-fusion run "
                     "with the same depth and decoder?)")
-        self.model.load_state_dict(
-            {f"{stage}.{k}": v for stage in ("stage1", "stage2")
-             for k, v in src.items()})
+            for k, v in src.items():
+                new[f"{stage}.{k}"] = widen_to_template(sd[f"{stage}.{k}"], v,
+                                                        k)
+        self.model.load_state_dict(new, strict=False)
         print(f"initialized stage1+stage2 from {step_dir}")
 
     def maybe_warm_start(self):

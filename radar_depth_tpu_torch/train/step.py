@@ -27,7 +27,11 @@ from radar_depth_tpu_torch.models import (
     blend_by_brightness,
     use_plain_kernels,
 )
-from radar_depth_tpu_torch.objectives import get_loss, multistage_loss
+from radar_depth_tpu_torch.objectives import (
+    get_loss,
+    multistage_loss,
+    multistage_uncertainty_loss,
+)
 from radar_depth_tpu_torch.ops.preprocess import (
     PreprocessConfig,
     pack_model_inputs,
@@ -44,6 +48,8 @@ def make_preprocess_config(cfg: TrainConfig) -> PreprocessConfig:
         augment=cfg.augment,
         raster_backend=cfg.data.raster_backend,
         gt_augment=cfg.data.gt_augment,
+        sparsifier=cfg.data.sparsifier,
+        num_samples=cfg.data.num_samples,
     )
 
 
@@ -54,10 +60,15 @@ def _device(model: torch.nn.Module) -> torch.device:
 def _loss_and_pred(out, target, cfg: TrainConfig, spec: ArchSpec, rgb=None):
     """``rgb`` (eval only) turns on the ``blend_tau`` output policy, so the
     metrics score the served output; the loss is always the multistage sum
-    over both heads."""
+    over both heads, weighted by the learned log-variances when the model
+    returns them (the uncertainty archs)."""
     if spec.multistage:
-        loss = multistage_loss(out, target, cfg.optim.criterion,
-                               cfg.optim.stage_weights)
+        if len(out) == 3:  # (coarse, refined, stage_log_var)
+            loss = multistage_uncertainty_loss(out[:2], out[2], target,
+                                               cfg.optim.criterion)
+        else:
+            loss = multistage_loss(out, target, cfg.optim.criterion,
+                                   cfg.optim.stage_weights)
         pred = out[1]
         if rgb is not None and cfg.model.blend_tau > 0:
             pred = blend_by_brightness(out[0], out[1], rgb,
@@ -72,12 +83,14 @@ def make_micro_grad_fn(model: torch.nn.Module, spec: ArchSpec,
                        cfg: TrainConfig, plain: bool = False,
                        host_augmented: bool = False) -> Callable:
     """One micro-batch of the train step without the optimizer update:
-    ``micro_grads(batch, aug_params=None, generator=None) -> (grads, sums)``
-    with ``grads`` {parameter name: gradient}. The forward runs in train
-    mode, so the model's BN running statistics move, in place.
+    ``micro_grads(batch, aug_params=None, generator=None, sparse_u=None) ->
+    (grads, sums)`` with ``grads`` {parameter name: gradient}. The forward
+    runs in train mode, so the model's BN running statistics move, in place.
 
     The augmentation parameters are ``aug_params`` or drawn from
-    ``generator`` (``ops/preprocess.py::prepare_train_batch``). With
+    ``generator`` (``ops/preprocess.py::prepare_train_batch``); under a
+    sparsifier its uniform draws are ``sparse_u`` or drawn from
+    ``generator``, fresh each step. With
     ``host_augmented=True`` the batch was augmented already, by the native
     loader's threads (``data/packed.py::NativeBatchLoader(augment=...)``),
     so the step runs the eval preprocessing (the radar through the z-buffer,
@@ -88,15 +101,18 @@ def make_micro_grad_fn(model: torch.nn.Module, spec: ArchSpec,
     names, params = zip(*model.named_parameters())
 
     def micro_grads(batch: Dict, aug_params=None,
-                    generator: torch.Generator | None = None):
+                    generator: torch.Generator | None = None,
+                    sparse_u=None):
         model.train()
         if host_augmented:
-            prepared = prepare_eval_batch(batch, pre, _device(model), plain)
+            prepared = prepare_eval_batch(batch, pre, _device(model), plain,
+                                          sparse_u, generator)
         else:
             prepared = prepare_train_batch(batch, pre, aug_params, generator,
-                                           _device(model), plain)
+                                           _device(model), plain, sparse_u)
         target = prepared["target"]
-        out = model(*pack_model_inputs(prepared, spec.input_kind))
+        out = model(*pack_model_inputs(prepared, spec.input_kind,
+                                       cfg.model.modality))
         loss, pred = _loss_and_pred(out, target, cfg, spec)
         grads = torch.autograd.grad(loss, params)
         with torch.no_grad():
@@ -110,13 +126,13 @@ def make_micro_grad_fn(model: torch.nn.Module, spec: ArchSpec,
 def make_train_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
                     plain: bool = False,
                     host_augmented: bool = False) -> Callable:
-    """``train_step(state, batch, generator=None, aug_params=None) -> sums``
-    for ``state.model is model``; advances ``state`` in place.
-    ``host_augmented``: see ``make_micro_grad_fn``.
+    """``train_step(state, batch, generator=None, aug_params=None,
+    sparse_u=None) -> sums`` for ``state.model is model``; advances
+    ``state`` in place. ``host_augmented``: see ``make_micro_grad_fn``.
 
     With ``cfg.optim.grad_accum`` = N > 1 the batch's leaves are stacked
-    (N, B, ...) and ``aug_params``, if given, is a sequence of N parameter
-    tuples: the micro-batches run in order, BN statistics carried from one
+    (N, B, ...) and ``aug_params`` and ``sparse_u``, if given, hold one
+    entry per micro-batch: the micro-batches run in order, BN statistics carried from one
     to the next, their gradients averaged into one update; the metric sums
     add up and the loss is divided by N, so its scale matches the plain
     step."""
@@ -134,18 +150,20 @@ def make_train_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
 
     def train_step(state: TrainState, batch: Dict,
                    generator: torch.Generator | None = None,
-                   aug_params: Sequence | None = None) -> Dict:
+                   aug_params: Sequence | None = None,
+                   sparse_u: Sequence | None = None) -> Dict:
         if state.model is not model:
             raise ValueError("state.model is not the model of this step")
         if accum == 1:
-            grads, sums = micro_grads(batch, aug_params, generator)
+            grads, sums = micro_grads(batch, aug_params, generator, sparse_u)
             apply_update(state, grads)
             return sums
         grads, sums = None, None
         for i in range(accum):
             g, s = micro_grads({k: v[i] for k, v in batch.items()},
                                None if aug_params is None else aug_params[i],
-                               generator)
+                               generator,
+                               None if sparse_u is None else sparse_u[i])
             if grads is None:
                 grads, sums = g, s
             else:
@@ -170,7 +188,8 @@ def make_eval_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
     def eval_step(batch: Dict) -> Dict:
         use_plain_kernels(model.eval(), plain)
         prepared = prepare_eval_batch(batch, pre, _device(model), plain)
-        out = model(*pack_model_inputs(prepared, spec.input_kind))
+        out = model(*pack_model_inputs(prepared, spec.input_kind,
+                                       cfg.model.modality))
         loss, pred = _loss_and_pred(out, prepared["target"], cfg, spec,
                                     rgb=prepared["rgb"])
         sums = compute_metric_sums(pred, prepared["target"], cfg.metric_avg)
@@ -190,7 +209,8 @@ def make_predict_fn(model: torch.nn.Module, spec: ArchSpec,
     @torch.no_grad()
     def predict(batch: Dict) -> Dict[str, torch.Tensor]:
         prepared = prepare_eval_batch(batch, pre, _device(model))
-        out = model.eval()(*pack_model_inputs(prepared, spec.input_kind))
+        out = model.eval()(*pack_model_inputs(prepared, spec.input_kind,
+                                              cfg.model.modality))
         _, pred = _loss_and_pred(out, prepared["target"], cfg, spec,
                                  rgb=prepared["rgb"])
         return dict(prepared, pred=pred)

@@ -11,8 +11,8 @@ best.txt line, the comparison panel. Port-only, mirroring tests/test_train.py,
 test_inference.py and test_watchdog.py: resume exactness (bitwise on the
 CPU), checkpoint retention and restore paths, the stale-save sweep, the run
 lock, --ckpt-every, --init-from and --stage1-path, per-split validation,
-the watchdog's heartbeat, Predictor.from_run, and the settings that are not
-ported raising NotImplementedError."""
+the watchdog's heartbeat, Predictor.from_run, a stage2_coarse Predictor,
+and --spatial, the one setting not ported, raising NotImplementedError."""
 
 import csv
 import dataclasses
@@ -354,11 +354,22 @@ def test_from_run_without_cfg(runs):
 
 
 def test_stage2_coarse_raises(tmp_path, runs):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Predictor(config.ServeConfig(arch="resnet18_multistage",
-                                     stage2_coarse=True), {}, device="cpu")
+    """A stage2_coarse model's stage 2 takes [filtered radar, coarse]: the
+    Predictor builds it with a 2-channel stage-2 radar conv1 and serves, and
+    from_run raises on a run trained without it (1-channel conv1)."""
+    from radar_depth_tpu_torch.models import create_model, init_random
+
+    scfg = config.ServeConfig(arch="resnet18_multistage", stage2_coarse=True,
+                              height=64, width=96, num_sweeps=2)
+    model, _ = create_model(scfg.arch, device="cpu", output_size=(64, 96),
+                            **scfg.arch_kwargs())
+    p = Predictor(scfg, init_random(model, 0).state_dict(), device="cpu")
+    assert p.model.stage2.radar_encoder.conv1.weight.shape[1] == 2
+    assert p.model.stage1.radar_encoder.conv1.weight.shape[1] == 1
+    batch = PackedDataset(os.path.join(runs["data"], "val")).batch(range(2))
+    assert np.isfinite(p.predict(batch)).all()
     cfg = config.load_config(os.path.join(runs["straight"], "config.json"))
-    with pytest.raises(NotImplementedError, match="stage2-coarse"):
+    with pytest.raises(RuntimeError, match="stage2.radar_encoder.conv1"):
         Predictor.from_run(runs["straight"], device="cpu",
                            cfg=dataclasses.replace(
                                cfg, model=dataclasses.replace(
@@ -569,13 +580,35 @@ UNPORTED = [(["--decoder", "deconv2"], "item 9"),
 @pytest.mark.parametrize("extra,item", UNPORTED,
                          ids=[" ".join(a) for a, _ in UNPORTED])
 def test_unported_settings_raise(tmp_path, extra, item):
-    """Values the port has not ported parse, and building the Trainer with
-    them raises NotImplementedError naming the ROADMAP item."""
+    """--spatial (ROADMAP item 10) parses, and building the Trainer with it
+    raises NotImplementedError naming the item, before the output dir is
+    made. The settings that item 9 ported (archs, decoders, --sparsifier,
+    --remat, --stage2-coarse, --pretrained with a torchvision state_dict on
+    disk) are no longer reported and build a Trainer."""
+    out = tmp_path / "out"
+    if "w.pth" in extra:
+        from tests.test_pretrained import _fake_torchvision_sd
+
+        torch.save(_fake_torchvision_sd()[1], tmp_path / "w.pth")
+        extra = [str(tmp_path / a) if a == "w.pth" else a for a in extra]
     argv = ["--arch", "resnet18_multistage", "--platform", "cpu",
-            "--output-dir", str(tmp_path)] + extra
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(config.parse_command(argv))
-    assert not os.listdir(tmp_path)
+            "--output-dir", str(out)] + extra
+    if item == "item 10":
+        with pytest.raises(NotImplementedError, match=item):
+            Trainer(config.parse_command(argv))
+        assert not out.exists()
+        return
+    cfg = config.parse_command(argv + ["--height", "64", "--width", "96",
+                                       "--num-train", "4", "--num-val", "2",
+                                       "-b", "2"])
+    assert config.unported(cfg) == []
+    tr = Trainer(cfg)
+    try:
+        assert tr.arch_spec.name == cfg.model.arch
+        if cfg.model.pretrained:
+            assert [r[1] for r in tr.pretrained_report] == [100, 99, 100, 99]
+    finally:
+        tr.close()
 
 
 def test_default_platform_needs_a_card(tmp_path):

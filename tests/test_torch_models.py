@@ -179,5 +179,5 @@ def test_convert_rejects_mismatched_trees(multistage):
     small["stage1.conv3.weight"] = torch.zeros(1, 8, 3, 3)
     with pytest.raises(ValueError, match="shape"):
         state_dict_from_jax_variables(variables, like=small)
-    with pytest.raises(KeyError, match="not ported"):
-        create_model("resnet50_multistage", device="cpu")
+    with pytest.raises(KeyError, match="unknown arch"):
+        create_model("resnet101_multistage", device="cpu")

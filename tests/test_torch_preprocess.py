@@ -78,19 +78,23 @@ def test_geometry_matches_jax():
 
 
 def test_pack_model_inputs_matches_jax():
-    """Late fusion packs (rgb, radar) as in JAX; the single-branch kinds are
-    not ported and raise."""
+    """Late fusion packs (rgb, radar), the single-branch kinds (rgb,),
+    (concat(rgb, radar),) or (radar,) by modality, as in JAX; an unknown
+    modality raises."""
     rng = np.random.default_rng(1)
     prepared = {"rgb": rng.uniform(size=(2, 4, 6, 3)).astype(np.float32),
                 "radar": rng.uniform(size=(2, 4, 6, 1)).astype(np.float32)}
-    want = jax_pack({k: jnp.asarray(v) for k, v in prepared.items()}, "late")
-    got = pack_model_inputs({k: torch.from_numpy(v)
-                             for k, v in prepared.items()}, "late")
-    assert len(got) == len(want) == 2
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    with pytest.raises(ValueError, match="not ported"):
-        pack_model_inputs(prepared, "single")
+    ported = {k: torch.from_numpy(v) for k, v in prepared.items()}
+    for kind, modality, n in (("late", "rgbd", 2), ("single", "rgb", 1),
+                              ("single", "rgbd", 1), ("single", "d", 1)):
+        want = jax_pack({k: jnp.asarray(v) for k, v in prepared.items()},
+                        kind, modality)
+        got = pack_model_inputs(ported, kind, modality)
+        assert len(got) == len(want) == n
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    with pytest.raises(ValueError, match="modality"):
+        pack_model_inputs(ported, "single", "rgbdd")
 
 
 def test_prepare_eval_batch_defaults_to_the_card(batch, monkeypatch):
