@@ -29,6 +29,23 @@ Phases, each printing one JSON line:
                  against the CPU on a small input; img/s of both backends and
                  peak memory
   profile        device time by kernel category over one B=8 predict call
+  serve_http     the flagship (bfloat16, max_tile=8) behind the HTTP daemon
+                 (serve.py::DepthServer on 127.0.0.1, in-process): warmup
+                 seconds, /healthz 503 before it and 200 after, requests of 3
+                 and 11 samples equal to Predictor.predict with kernel B at
+                 84 and kernel C at 1 launch per tile, a malformed request
+                 answered by a 400 JSON error with the server still up,
+                 every predict made on the daemon's one device thread (its
+                 host time kept); 8 clients sending 64 one-sample requests
+                 single-flight (window 0) and coalesced (window 5 ms):
+                 requests/s, p50/p99 ms, device dispatches
+  export         the flagship at B=8 (bfloat16) exported with both
+                 raster_backend values (Predictor.export_serving): bytes,
+                 export and load seconds, the rdt.* nodes of each graph; one
+                 call of each loaded artifact counted (84 B and 1 C, or 1 A)
+                 and equal to Predictor.predict; the sorted artifact loaded
+                 and checked again in a fresh process that imports only the
+                 port; img/s of the artifact beside Predictor.predict (ABBA)
   zoo            the rest of the registry at full width (bfloat16, B=8,
                  seeded random weights), each through Predictor with its
                  kernel B sites per forward checked against the module
@@ -48,7 +65,12 @@ Phases, each printing one JSON line:
                  default and its deterministic algorithms
   epilogue       kernel B against its plain version at every (shape, residual)
                  that the flagship and the zoo give it at B=8, in bfloat16
-                 and float32: bit-equal, warm ms against the bytes bound
+                 and float32: bit-equal, warm ms against the bytes bound; the
+                 host time per call of the registered operator
+                 torch.ops.rdt.scale_bias_relu, of its wrapper and of a
+                 torch.library.custom_op form against the bare ctypes launch
+                 at the smallest flagship site; the flagship's serving img/s
+                 at B=8 through the registered operators
   train          the flagship's train step at B=8 on SyntheticNuScenes(seed=0):
                  10 float32 and 10 bfloat16 steps on a repeated batch (loss
                  finite and falling), 3 steps with gt_augment="rerasterize",
@@ -465,11 +487,69 @@ def bf16_ulp(torch, x):
     return torch.where(a > 0, torch.exp2(e - 7), torch.full_like(a, 2.0**-133))
 
 
-def phase_epilogue(torch, dev, sites_by_config):
+def epilogue_host_us(torch, dev, calls=500, reps=6):
+    """Host time per call, in us, of kernel B's registered operator
+    (torch.ops.rdt.scale_bias_relu), of its wrapper (argument checks, then
+    the operator) and of the same launch as a torch.library.custom_op,
+    against the bare ctypes launch, at the smallest flagship site (bf16
+    8x512x15x25, no residual). Each run of ``calls`` calls is queued behind
+    a device sleep longer than the run, so the host never waits for the
+    card and its clock over the run measures the calls alone; the forms in
+    turns, the order reversed every round, medians over ``reps`` runs."""
+    from radar_depth_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((8, 512, 15, 25), generator=g, device=dev).to(
+        torch.bfloat16, memory_format=torch.channels_last)
+    scale = torch.rand(512, generator=g, device=dev) + 0.5
+    bias = torch.randn(512, generator=g, device=dev) * 0.1
+    out = torch.empty_like(x)
+
+    def custom_impl(x, scale, bias):
+        y = torch.empty_like(x)
+        kernels.launch_scale_bias_relu(x, scale, bias, None, y)
+        return y
+
+    custom = torch.library.custom_op(
+        "rdt_smoke::scale_bias_relu", custom_impl, mutates_args=(),
+        schema="(Tensor x, Tensor scale, Tensor bias) -> Tensor")
+    fns = {"bare_ctypes_launch": lambda: kernels.launch_scale_bias_relu(
+               x, scale, bias, None, out),
+           "rdt_op": lambda: torch.ops.rdt.scale_bias_relu(x, scale, bias),
+           "wrapper": lambda: kernels.scale_bias_relu(x, scale, bias),
+           "custom_op": lambda: custom(x, scale, bias)}
+    want = kernels.scale_bias_relu_reference(x, scale, bias)
+    for name, fn in fns.items():
+        got = fn()
+        if name == "bare_ctypes_launch":
+            got = out
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"epilogue host timing: {name} differs")
+    names = list(fns)
+    times = {name: [] for name in names}
+    for r in range(reps):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(200_000_000)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fns[name]()
+            times[name].append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+    return {"shape_nchw": list(x.shape), "calls_per_run": calls,
+            **{f"{name}_us": statistics.median(t) for name, t in times.items()},
+            **{f"{name}_us_all": t for name, t in times.items()}}
+
+
+def phase_epilogue(torch, dev, sites_by_config, serve_img_per_s):
     """Kernel B against its plain version at every (shape, residual) that
     the served configurations give it (``sites_by_config``: config name ->
     the sites of one B=8 forward), in bfloat16 and float32: bit-equal (a
-    signed zero aside), warm and plain ms, and the bytes bound."""
+    signed zero aside), warm and plain ms, and the bytes bound; the host
+    cost per call of its operator (``epilogue_host_us``); the flagship's
+    serving img/s at B=8 through the operators (``serve_img_per_s``, from
+    phase serve)."""
     from radar_depth_tpu_torch.ops import kernels
 
     per_site = {}
@@ -517,10 +597,13 @@ def phase_epilogue(torch, dev, sites_by_config):
                                     scale_bias_relu_reference(x, scale, bias,
                                                               res)),
                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    host = epilogue_host_us(torch, dev)
     emit({"phase": "epilogue", "cases": len(results), "max_abs_err": max_err,
           "configs": sorted(sites_by_config),
-          "check": "bit-equal to the plain version (signed zeros aside)"})
-    return results, max_err
+          "check": "bit-equal to the plain version (signed zeros aside)",
+          "host_us_per_call": host,
+          "flagship_serve_img_per_s_b8_registered_ops": serve_img_per_s})
+    return results, max_err, host
 
 
 # ------------------------------------------------------------- serving
@@ -691,6 +774,363 @@ def phase_serve(torch, np, dev, batch, sd):
                                    for k, v in launches.items()},
           **speed, **parity})
     return launches, launches_scatter, speed, parity, pred, sites
+
+
+# ------------------------------------------------------- HTTP daemon
+
+HTTP_TIMEOUT = 120  # seconds, for every request and every join
+HTTP_CLIENTS, HTTP_REQUESTS = 8, 64  # scripts/bench_serve_concurrency.py
+HTTP_WINDOW_MS = 5.0
+SERVE_TILE = 8  # the daemon's max_tile
+
+
+def npz_body(np, batch) -> bytes:
+    import io
+
+    buf = io.BytesIO()
+    np.savez(buf, **batch)
+    return buf.getvalue()
+
+
+def npz_depth(np, body):
+    import io
+
+    return np.load(io.BytesIO(body))["depth"]
+
+
+def http(url, body=None):
+    """(status, body) of a GET of ``url``, or of a POST of ``body``; an HTTP
+    error's too."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body,
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def tiles_of(n, max_tile=SERVE_TILE):
+    """The device batches Predictor.predict cuts a request of n into."""
+    tile = 1
+    while tile < n and tile < max_tile:
+        tile *= 2
+    return math.ceil(n / tile)
+
+
+class DeviceThreadChecked:
+    """A Predictor whose predict raises unless it runs on the daemon's one
+    device thread (no other thread launches work on the card), and which
+    keeps the host-clock seconds of each predict call."""
+
+    def __init__(self, pred):
+        self.pred, self.cfg = pred, pred.cfg
+        self.seconds, self.threads = [], set()
+
+    def predict(self, batch, max_tile):
+        import threading
+
+        thread = threading.current_thread()
+        self.threads.add(thread.ident)
+        if not thread.name.startswith("rdt-device") or len(self.threads) > 1:
+            raise AssertionError(f"predict on thread {thread.name}, threads "
+                                 f"{self.threads}: not the one device thread")
+        t0 = time.perf_counter()
+        out = self.pred.predict(batch, max_tile=max_tile)
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+class http_server:
+    """Context: a DepthServer over ``pred`` (checked to run on the device
+    thread) on an ephemeral 127.0.0.1 port, serve_forever on a thread;
+    yields (server, checked predictor, url); closed, shut down and joined on
+    exit."""
+
+    def __init__(self, pred, window_ms=0.0):
+        self.pred, self.window_ms = pred, window_ms
+
+    def __enter__(self):
+        import threading
+
+        from radar_depth_tpu_torch.serve import DepthServer
+
+        checked = DeviceThreadChecked(self.pred)
+        self.srv = DepthServer(checked, max_tile=SERVE_TILE,
+                               batch_window_ms=self.window_ms)
+        self.httpd = self.srv.serve("127.0.0.1", 0)
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        return (self.srv, checked,
+                f"http://127.0.0.1:{self.httpd.server_address[1]}")
+
+    def __exit__(self, *exc):
+        self.srv.close()
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=HTTP_TIMEOUT)
+        if self.thread.is_alive():
+            raise AssertionError("serve_forever did not stop")
+
+
+def concurrency(np, pred, bodies, window_ms):
+    """HTTP_CLIENTS clients, each sending its own one-sample request in
+    turn, HTTP_REQUESTS requests in all (scripts/bench_serve_concurrency.py
+    for the JAX daemon): requests/s, p50/p99 ms, device dispatches."""
+    import threading
+
+    with http_server(pred, window_ms) as (srv, checked, url):
+        srv.warmup()
+        warm_calls = len(checked.seconds)
+        lat, bad, lock = [], [], threading.Lock()
+
+        def client(ci):
+            for _ in range(HTTP_REQUESTS // HTTP_CLIENTS):
+                t0 = time.perf_counter()
+                status, body = http(f"{url}/predict", bodies[ci])
+                dt = time.perf_counter() - t0
+                ok = status == 200
+                if ok:
+                    d = npz_depth(np, body)
+                    ok = d.shape == (1, H, W) and bool(np.isfinite(d).all())
+                with lock:
+                    lat.append(dt)
+                    if not ok:
+                        bad.append(status)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(HTTP_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=HTTP_TIMEOUT)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            raise AssertionError(f"window {window_ms} ms: a client hung")
+        if bad or len(lat) != HTTP_REQUESTS:
+            raise AssertionError(f"window {window_ms} ms: {len(lat)} "
+                                 f"requests, failures {bad}")
+        lat_ms = np.asarray(lat) * 1e3
+        return {"window_ms": window_ms, "clients": HTTP_CLIENTS,
+                "requests": len(lat), "wall_s": wall,
+                "req_per_s": len(lat) / wall,
+                "p50_ms": float(np.percentile(lat_ms, 50)),
+                "p99_ms": float(np.percentile(lat_ms, 99)),
+                "device_dispatches": srv.dispatch_count,
+                "predict_s_total": sum(checked.seconds[warm_calls:])}
+
+
+def phase_serve_http(torch, np, pred, batch):
+    """The flagship's Predictor behind the HTTP daemon, in-process."""
+    take = lambda n: {k: v[:n] for k, v in batch.items()}
+    out = {"phase": "serve_http", "arch": pred.cfg.arch,
+           "dtype": pred.cfg.dtype, "hw": [H, W], "max_tile": SERVE_TILE}
+    requests = {}
+    with http_server(pred) as (srv, checked, url):
+        out["healthz_before_warmup"] = http(f"{url}/healthz")[0]
+        t0 = time.perf_counter()
+        srv.warmup()
+        out["warmup_s"] = time.perf_counter() - t0
+        out["healthz_after_warmup"] = http(f"{url}/healthz")[0]
+        if (out["healthz_before_warmup"], out["healthz_after_warmup"]) != (
+                503, 200):
+            raise AssertionError(f"healthz {out}")
+
+        # the main path, counted per request
+        for n in (3, 11):
+            body = npz_body(np, take(n))
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            status, resp = http(f"{url}/predict", body)
+            call_ms = (time.perf_counter() - t0) * 1e3
+            launches = read_launches()
+            predict_ms = checked.seconds[-1] * 1e3
+            if status != 200:
+                raise AssertionError(f"POST B={n}: {status} {resp[:300]!r}")
+            depth = npz_depth(np, resp)
+            want = pred.predict(take(n), max_tile=SERVE_TILE)
+            tiles = tiles_of(n)
+            want_launches = {KERNELS["A"]: 0,
+                             KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD * tiles,
+                             KERNELS["C"]: tiles}
+            if launches != want_launches:
+                raise AssertionError(f"POST B={n}: launches {launches}, "
+                                     f"expected {want_launches}")
+            if depth.shape != (n, H, W) or depth.dtype != np.float32:
+                raise AssertionError(f"POST B={n}: {depth.dtype} "
+                                     f"{depth.shape}")
+            r = {"tiles": tiles, "launches": launches, "call_ms": call_ms,
+                 "predict_ms": predict_ms,
+                 "request_bytes": len(body), "response_bytes": len(resp),
+                 "bit_equal_to_predict": bool(np.array_equal(depth, want))}
+            if not r["bit_equal_to_predict"]:
+                r["rel_rmse_vs_predict"] = rel_rmse(np, depth, want)
+                if r["rel_rmse_vs_predict"] > PARITY_REL_RMSE_TOL:
+                    raise AssertionError(f"POST B={n} vs predict: {r}")
+            requests[f"b{n}"] = r
+
+        status, resp = http(f"{url}/predict", b"not an npz")
+        error = json.loads(resp).get("error", "") if status == 400 else ""
+        out["bad_request"] = {"status": status, "error": error[:160]}
+        out["healthz_after_bad_request"] = http(f"{url}/healthz")[0]
+        if status != 400 or not error or out[
+                "healthz_after_bad_request"] != 200:
+            raise AssertionError(f"malformed request: {status} {resp[:300]!r}")
+        out["predict_calls_on_device_thread"] = len(checked.seconds)
+    out["requests"] = requests
+    bodies = [npz_body(np, {k: v[i:i + 1] for k, v in batch.items()})
+              for i in range(HTTP_CLIENTS)]
+    out["concurrency"] = {
+        "single_flight": concurrency(np, pred, bodies, 0.0),
+        "coalesced": concurrency(np, pred, bodies, HTTP_WINDOW_MS)}
+    out["closed"] = True
+    emit(out)
+    return out
+
+
+# ------------------------------------------------------------- export
+
+EXPORT_BATCH = 8
+
+# Run in a fresh interpreter: load an artifact with nothing but the port
+# imported, run it on a batch, and compare with a saved prediction.
+FRESH_LOAD = r"""
+import json, sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from radar_depth_tpu_torch.inference import load_serving
+from radar_depth_tpu_torch.ops import kernels
+names = ("zbuffer_min_depth", "scale_bias_relu", "zbuffer_min_depth_sorted")
+serve = load_serving(sys.argv[2])
+batch = dict(np.load(sys.argv[3]))
+want = np.load(sys.argv[4])
+serve(batch)
+for n in names:
+    getattr(kernels, n).launches = 0
+got = serve(batch)
+launches = {n: getattr(kernels, n).launches for n in names}
+foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "radar_depth_tpu"))
+print(json.dumps({
+    "launches": launches, "shape": list(got.shape),
+    "bit_equal": bool(np.array_equal(got, want)),
+    "rel_rmse": float(np.sqrt(np.mean((got - want) ** 2))
+                      / np.sqrt(np.mean(want ** 2))),
+    "foreign_modules": foreign}))
+"""
+
+
+def abba(fns, reps=6):
+    """Host-clock seconds of each function (each ends in a fetch to the
+    host), taken in turns, the order reversed every round."""
+    names = list(fns)
+    times = {name: [] for name in names}
+    for r in range(reps):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            t0 = time.perf_counter()
+            fns[name]()
+            times[name].append(time.perf_counter() - t0)
+    return times
+
+
+def phase_export(torch, np, dev, batch, sd, pred):
+    """The flagship's serving artifact at B=8, both z-buffer backends."""
+    import shutil
+    import tempfile
+
+    from radar_depth_tpu_torch.inference import Predictor, load_serving
+
+    b8 = {k: v[:EXPORT_BATCH] for k, v in batch.items()}
+    preds = {"sorted": pred,
+             "scatter": Predictor(dataclasses.replace(
+                 pred.cfg, raster_backend="scatter"), sd, device=dev)}
+    zbuffer = {"sorted": KERNELS["C"], "scatter": KERNELS["A"]}
+    out = {"phase": "export", "arch": pred.cfg.arch, "dtype": pred.cfg.dtype,
+           "hw": [H, W], "batch": EXPORT_BATCH}
+    tmp = tempfile.mkdtemp(prefix="rdt-export-")
+    try:
+        served = {}
+        for backend, p in preds.items():
+            path = os.path.join(tmp, f"{backend}.pt2")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nbytes = p.export_serving(path, EXPORT_BATCH)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            serve = load_serving(path)
+            load_s = time.perf_counter() - t0
+            # the rdt.* nodes, and the copies of a layout (clone) that the
+            # trace added where its fake tensors' layout differed
+            nodes = {}
+            for n in torch.export.load(path).graph.nodes:
+                name = str(n.target)
+                if n.op == "call_function" and (name.startswith("rdt.")
+                                                or "clone" in name):
+                    nodes[name] = nodes.get(name, 0) + 1
+            serve(b8)  # first call: cuDNN set-up for the artifact's convs
+            torch.cuda.synchronize()
+            # the main path, counted: one call of the loaded artifact
+            reset_launches()
+            got = serve(b8)
+            launches = read_launches()
+            want_launches = {KERNELS["A"]: 0, KERNELS["C"]: 0,
+                             KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD}
+            want_launches[zbuffer[backend]] = 1
+            if launches != want_launches:
+                raise AssertionError(f"export {backend}: launches {launches}, "
+                                     f"expected {want_launches}")
+            want = p.predict(b8)
+            r = {"bytes": nbytes, "export_s": export_s, "load_s": load_s,
+                 "nodes": nodes, "launches": launches,
+                 "bit_equal_to_predict": bool(np.array_equal(got, want))}
+            if not r["bit_equal_to_predict"]:
+                r["rel_rmse_vs_predict"] = rel_rmse(np, got, want)
+                if r["rel_rmse_vs_predict"] > PARITY_REL_RMSE_TOL:
+                    raise AssertionError(f"export {backend} vs predict: {r}")
+            out[backend] = r
+            served[backend] = (serve, path, want)
+
+        # the sorted artifact in a fresh process that imports only the port
+        serve, path, want = served["sorted"]
+        np.savez(os.path.join(tmp, "batch.npz"), **b8)
+        np.save(os.path.join(tmp, "want.npy"), want)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", FRESH_LOAD,
+             os.path.dirname(os.path.abspath(__file__)), path,
+             os.path.join(tmp, "batch.npz"), os.path.join(tmp, "want.npy")],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"fresh load failed:\n{proc.stderr[-3000:]}")
+        fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+        fresh["process_s"] = time.perf_counter() - t0
+        if (fresh["launches"] != out["sorted"]["launches"]
+                or fresh["foreign_modules"]
+                or fresh["shape"] != [EXPORT_BATCH, H, W]
+                or not (fresh["bit_equal"]
+                        or fresh["rel_rmse"] <= PARITY_REL_RMSE_TOL)):
+            raise AssertionError(f"fresh load: {fresh}")
+        out["fresh_process"] = fresh
+
+        # img/s of the loaded artifact beside Predictor.predict
+        times = abba({"artifact": lambda: serve(b8),
+                      "predict": lambda: pred.predict(b8)})
+        out["speed"] = {
+            name: {"img_per_s": EXPORT_BATCH / statistics.median(t),
+                   "ms_per_call_all": [x * 1e3 for x in t]}
+            for name, t in times.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del preds
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
 
 
 # ------------------------------------------------------------- training
@@ -1624,11 +2064,14 @@ def main(argv=None) -> int:
         torch, np, dev, batch, sd)
     prof = phase_profile(torch, pred, {k: v[:B_SERVE]
                                        for k, v in batch.items()})
+    serve_http = phase_serve_http(torch, np, pred, batch)
+    export = phase_export(torch, np, dev, batch, sd, pred)
     del pred
     torch.cuda.empty_cache()
     zoo, zoo_sites, prof_zoo = phase_zoo(torch, np, dev, batch)
-    epi, epi_err = phase_epilogue(torch, dev, {"resnet18_multistage": sites,
-                                               **zoo_sites})
+    epi, epi_err, epi_host = phase_epilogue(
+        torch, dev, {"resnet18_multistage": sites, **zoo_sites},
+        speed["sorted"]["img_per_s_b8"])
     train, train_launches, trained = phase_train(torch, np, dev, batch)
     ev = phase_eval(torch, np, dev, batch, trained)
     prof_train = phase_profile_train(torch, dev, trained, batch)
@@ -1644,10 +2087,12 @@ def main(argv=None) -> int:
     radar = zbs["radar"]
     summary = {"kernels": [
         {"name": "zbuffer_min_depth", "route": "cuda",
+         "op": "rdt::zbuffer_min_depth",
          "source": "radar_depth_tpu_torch/csrc/zbuffer.cu",
          "replaces": "radar_depth_tpu/ops/pallas_kernels.py:71",
          "launches": launches_sc[KERNELS["A"]],
          "launches_harness": harness["launches"][KERNELS["A"]],
+         "launches_export_call": export["scatter"]["launches"][KERNELS["A"]],
          "max_abs_err": 0.0,
          "ms": serve["ms"], "ms_cold": serve["ms_cold"],
          "ms_back_to_back": serve["ms_back_to_back"],
@@ -1656,10 +2101,17 @@ def main(argv=None) -> int:
          "bound_share": serve["bound_share"],
          "library_ms": serve["library_ms"]},
         {"name": "scale_bias_relu", "route": "cuda",
+         "op": "rdt::scale_bias_relu",
          "source": "radar_depth_tpu_torch/csrc/epilogue.cu",
          "replaces": "radar_depth_tpu/ops/pallas_kernels.py:251",
          "launches": launches[KERNELS["B"]],
          "launches_harness": harness["launches"][KERNELS["B"]],
+         "launches_serve_http": {
+             k: r["launches"][KERNELS["B"]]
+             for k, r in serve_http["requests"].items()},
+         "launches_export_call": export["sorted"]["launches"][KERNELS["B"]],
+         "host_us_per_call": {k: epi_host[f"{k}_us"] for k in (
+             "bare_ctypes_launch", "rdt_op", "wrapper", "custom_op")},
          "launches_per_forward": {
              name: n[KERNELS["B"]] // n[KERNELS["C"]]
              for name, n in (("resnet18_multistage", launches),
@@ -1670,10 +2122,15 @@ def main(argv=None) -> int:
          "bound_ms": stem["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
         {"name": "zbuffer_min_depth_sorted", "route": "cuda",
+         "op": "rdt::zbuffer_min_depth_sorted",
          "source": "radar_depth_tpu_torch/csrc/zbuffer_sorted.cu",
          "replaces": "radar_depth_tpu/ops/pallas_kernels.py:176",
          "launches": train_launches["float32"][KERNELS["C"]],
          "launches_harness": harness["launches"][KERNELS["C"]],
+         "launches_serve_http": {
+             k: r["launches"][KERNELS["C"]]
+             for k, r in serve_http["requests"].items()},
+         "launches_export_call": export["sorted"]["launches"][KERNELS["C"]],
          "max_abs_err": 0.0,
          "ms": radar["ms"], "ms_cold": radar["ms_cold"],
          "ms_back_to_back": radar["ms_back_to_back"],
@@ -1696,6 +2153,8 @@ def main(argv=None) -> int:
                        "train": train, "eval": ev, "profile": prof,
                        "profile_train": prof_train,
                        "harness": harness, "profile_harness": prof_harness,
+                       "serve_http": serve_http, "export": export,
+                       "epilogue_host_us": epi_host,
                        "zoo": zoo, "profile_zoo": prof_zoo,
                        "wall_s": time.perf_counter() - t_start,
                        "summary": summary}, f, indent=1)

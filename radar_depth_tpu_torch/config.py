@@ -186,7 +186,7 @@ def unported(cfg: TrainConfig) -> List[str]:
     """The settings of ``cfg`` that the port does not run yet, each with the
     ROADMAP item that ports it: ``--spatial`` alone."""
     if cfg.spatial > 1:
-        return [f"--spatial {cfg.spatial} (ROADMAP Queue A item 10)"]
+        return [f"--spatial {cfg.spatial} (ROADMAP Queue A item 5)"]
     return []
 
 

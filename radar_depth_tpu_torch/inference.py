@@ -8,6 +8,9 @@ same power-of-two tiling, ``predict_stream``):
     depth = p.predict(batch)            # (B, H, W) meters, numpy
     p = Predictor.from_run("runs/ms")   # a training run's best checkpoint
     metrics = p.evaluate(batch)         # Result-style dict
+    nbytes = p.export_serving("ms.pt2", batch_size=8)
+    serve = load_serving("ms.pt2")      # on the card, or device="cpu"
+    depth = serve(batch)                # the same path, weights baked in
 
 The path per chunk: ``prepare_eval_batch`` (z-buffer: sort + kernel C, or
 kernel A with ``raster_backend="scatter"``) ->
@@ -19,7 +22,9 @@ the host is the only wait.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+import zipfile
 from collections import deque
 from typing import Dict, Iterable, Iterator, Mapping
 
@@ -33,6 +38,7 @@ from radar_depth_tpu_torch.config import (
     require_ported,
     serve_config,
 )
+from radar_depth_tpu_torch.data.schema import sample_dtypes, sample_shapes
 from radar_depth_tpu_torch.device import resolve_device
 from radar_depth_tpu_torch.metrics import compute_metric_sums, finalize_metrics
 from radar_depth_tpu_torch.models import (
@@ -45,6 +51,74 @@ from radar_depth_tpu_torch.ops.preprocess import (
     pack_model_inputs,
     prepare_eval_batch,
 )
+
+# The serving artifact's own record, stored beside the exported program:
+# the device it was exported on and its fixed input shapes and dtypes.
+SERVING_META = "rdt_serving.json"
+
+
+def _serving_meta(path: str) -> Dict:
+    """The record of an artifact, read without loading its weights."""
+    with zipfile.ZipFile(path) as z:
+        names = [n for n in z.namelist()
+                 if n.endswith(f"extra/{SERVING_META}")]
+        if not names:
+            raise ValueError(f"{path} is not a serving artifact of "
+                             "Predictor.export_serving")
+        return json.loads(z.read(names[0]))
+
+
+def load_serving(path: str, device: str | torch.device | None = None):
+    """Load an artifact written by ``Predictor.export_serving``. Returns a
+    callable: raw schema batch (dict of numpy arrays, the exported batch
+    size) -> (B, H, W) float32 depth, numpy. It uploads the batch to
+    ``device`` itself.
+
+    ``device=None`` means the card and raises without one; the artifact
+    runs only on the kind of device it was exported on. The kernels'
+    operators (``torch.ops.rdt.*``) are registered by this module's
+    imports; their CUDA libraries are built at first use, as in eager
+    mode."""
+    dev = resolve_device(device)
+    meta = _serving_meta(path)
+    if meta["device"] != dev.type:
+        raise ValueError(
+            f"{path} was exported on {meta['device']!r} and runs only "
+            f"there, not on {dev.type!r}: export it again on that device")
+    module = torch.export.load(path).module()
+    inputs = meta["inputs"]
+
+    def serve(batch: Dict) -> np.ndarray:
+        if set(batch) != set(inputs):
+            raise KeyError(f"batch keys {sorted(batch)} != the artifact's "
+                           f"{sorted(inputs)}")
+        tensors = {}
+        for k, (shape, dtype) in inputs.items():
+            v = np.asarray(batch[k])
+            if list(v.shape) != shape or str(v.dtype) != dtype:
+                raise ValueError(
+                    f"{k}: {v.dtype}{list(v.shape)}, but the artifact takes "
+                    f"{dtype}{shape} (batch size {meta['batch_size']})")
+            tensors[k] = torch.from_numpy(
+                np.require(v, requirements="W")).to(dev)
+        with torch.no_grad():
+            return module(tensors).cpu().numpy()
+
+    return serve
+
+
+class _ServingGraph(torch.nn.Module):
+    """A Predictor's raw-batch -> depth path as one module, for
+    ``torch.export``: the model is a submodule, so its weights are baked
+    into the program."""
+
+    def __init__(self, predictor: "Predictor"):
+        super().__init__()
+        self.model = predictor.model
+        self.predictor = predictor
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return self.predictor.infer(batch)
 
 
 class Predictor:
@@ -138,6 +212,26 @@ class Predictor:
                     for k, v in chunk.items()}
             outs.append(self.infer(chunk)[:n].cpu().numpy())
         return np.concatenate(outs, axis=0)
+
+    def export_serving(self, path: str, batch_size: int) -> int:
+        """Write the whole raw-batch -> depth path (``prepare_eval_batch``
+        with its z-buffer, the model, the optional blend, ``pred[..., 0]``)
+        as one ``torch.export`` program, weights baked in, at a fixed batch
+        size, on this Predictor's device. Every kernel is a ``rdt.*`` node
+        of the graph. Returns the file's byte count; load it with
+        ``load_serving``."""
+        dtypes = sample_dtypes()
+        example = {k: torch.from_numpy(np.zeros((batch_size,) + shape,
+                                                dtypes[k])).to(self.device)
+                   for k, shape in sample_shapes(self.cfg.sample_spec()).items()}
+        with torch.no_grad():
+            program = torch.export.export(_ServingGraph(self), (example,))
+        meta = {"device": self.device.type, "batch_size": batch_size,
+                "inputs": {k: [list(v.shape), str(dtypes[k])]
+                           for k, v in example.items()}}
+        torch.export.save(program, path,
+                          extra_files={SERVING_META: json.dumps(meta)})
+        return os.path.getsize(path)
 
     def predict_stream(self, batches: Iterable[Dict],
                        depth: int = 2) -> Iterator[np.ndarray]:

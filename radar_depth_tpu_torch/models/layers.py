@@ -18,7 +18,6 @@ flax's modules do: training keeps float32 weights and casts them per call.
 from __future__ import annotations
 
 import contextlib
-import functools
 
 import numpy as np
 import torch
@@ -40,6 +39,15 @@ def to_nchw(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).to(dtype)
 
 
+def _channels_last(y: torch.Tensor) -> torch.Tensor:
+    """A convolution's output in channels_last memory. cuDNN returns it so
+    already (a no-op in eager mode); said explicitly because a tracer's fake
+    convolution may infer contiguous memory where the card does not (the
+    one-channel radar stem under torch 2.11's ``torch.export``), and kernel
+    B's wrapper checks the layout of what the tracer gives it."""
+    return y.contiguous(memory_format=torch.channels_last)
+
+
 class Conv2d(nn.Module):
     """Bias-free conv with torch-style symmetric padding, computed in
     ``dtype``. The weight is held in ``param_dtype`` (default: ``dtype``, so
@@ -57,8 +65,9 @@ class Conv2d(nn.Module):
                              param_dtype or dtype, device, channels_last=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
-                        stride=self.stride, padding=self.padding)
+        return _channels_last(F.conv2d(
+            x.to(self.dtype), self.weight.to(self.dtype), stride=self.stride,
+            padding=self.padding))
 
 
 class HeadConv3(Conv2d):
@@ -84,9 +93,9 @@ class UnpoolConv(Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.weight.shape[-1]
         w = self.weight.to(self.dtype).flip((2, 3)).transpose(0, 1)
-        return F.conv_transpose2d(x.to(self.dtype), w, stride=2,
-                                  padding=k // 2,
-                                  output_padding=2 * (k // 2) + 2 - k)
+        return _channels_last(F.conv_transpose2d(
+            x.to(self.dtype), w, stride=2, padding=k // 2,
+            output_padding=2 * (k // 2) + 2 - k))
 
 
 class ConvTranspose(Conv2d):
@@ -105,9 +114,9 @@ class ConvTranspose(Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(self.dtype).transpose(0, 1)
-        return F.conv_transpose2d(x.to(self.dtype), w, stride=self.stride,
-                                  padding=self.padding,
-                                  output_padding=self.output_padding)
+        return _channels_last(F.conv_transpose2d(
+            x.to(self.dtype), w, stride=self.stride, padding=self.padding,
+            output_padding=self.output_padding))
 
 
 class BatchNorm(nn.Module):
@@ -215,12 +224,19 @@ def max_pool_torch(x: torch.Tensor, window: int = 3, stride: int = 2,
     return F.max_pool2d(x, window, stride, padding)
 
 
-@functools.lru_cache(maxsize=None)
+_INTERP: dict = {}
+
+
 def _interp_matrix(out_size: int, in_size: int, dtype: torch.dtype,
                    device: torch.device) -> torch.Tensor:
     """Row-stochastic (out, in) bilinear interpolation matrix, half-pixel
     centers with edge clamping (the JAX package's ``_interp_matrix``), built
-    once per shape, dtype and device."""
+    once per shape, dtype and device. Under a tracer (``torch.export``) the
+    tensor built is the tracer's fake one, which is not kept: the next eager
+    call would get it."""
+    key = (out_size, in_size, dtype, device)
+    if key in _INTERP:
+        return _INTERP[key]
     scale = in_size / out_size
     src = (np.arange(out_size) + 0.5) * scale - 0.5
     lo = np.floor(src).astype(int)
@@ -229,7 +245,10 @@ def _interp_matrix(out_size: int, in_size: int, dtype: torch.dtype,
     np.add.at(m, (np.arange(out_size), np.clip(lo, 0, in_size - 1)), 1.0 - frac)
     np.add.at(m, (np.arange(out_size), np.clip(lo + 1, 0, in_size - 1)), frac)
     with torch.inference_mode(False):  # cached: must serve autograd too
-        return torch.from_numpy(m).to(device=device, dtype=dtype)
+        t = torch.from_numpy(m).to(device=device, dtype=dtype)
+    if type(t) is torch.Tensor:
+        _INTERP[key] = t
+    return t
 
 
 def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:

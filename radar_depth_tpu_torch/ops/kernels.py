@@ -11,11 +11,17 @@ counters and build loader.
   min-depth z-buffer over points sorted by pixel. Replaces ``radar_depth_tpu/
   ops/pallas_kernels.py::rasterize_min_depth_pallas_sorted``.
 
-Each wrapper checks its arguments, then runs the plain version for a tensor
-on the CPU and launches the CUDA kernel for a tensor on the card; there is no
-fallback between the two. Each wrapper counts its launches in a plain integer
-attribute (``zbuffer_min_depth.launches``), which a run can reset and read to
-show that the main path went through the kernel.
+Each kernel is a registered torch operator, ``torch.ops.rdt.
+zbuffer_min_depth``, ``rdt.zbuffer_min_depth_sorted`` and ``rdt.
+scale_bias_relu``, so that a tracer (``torch.export``) keeps it as one node of
+its graph. Each operator has three implementations: the CUDA launch, the plain
+version for the CPU, and a fake one that gives the output's shape, dtype,
+device and memory format to the tracer. No other device has one, so a tensor
+elsewhere raises. Each wrapper checks its arguments, then calls its operator;
+there is no fallback between the CPU and the card. The CUDA implementation
+counts its launches in a plain integer attribute of the wrapper
+(``zbuffer_min_depth.launches``), which a run can reset and read to show that
+the main path went through the kernel.
 
 The sources are compiled with ``nvcc`` at first use by a CUDA tensor (or by
 ``build()``), into ``radar_depth_tpu_torch/_build/`` under a name that carries
@@ -44,6 +50,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict = {}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# The operators; their implementations are registered beside each kernel.
+OPS = torch.library.Library("rdt", "DEF")
+OPS.define("zbuffer_min_depth(Tensor lin, Tensor z, int height, int width) "
+           "-> Tensor")
+OPS.define("zbuffer_min_depth_sorted(Tensor lin_sorted, Tensor z_sorted, "
+           "int height, int width) -> Tensor")
+OPS.define("scale_bias_relu(Tensor x, Tensor scale, Tensor bias, "
+           "Tensor? residual=None) -> Tensor")
 
 
 # ------------------------------------------------------------------ build
@@ -172,7 +187,8 @@ def zbuffer_min_depth(lin: torch.Tensor, zf: torch.Tensor, height: int,
                       width: int) -> torch.Tensor:
     """(B, P) int32 linear pixel indices (-1 = dropped) and float32 depths,
     which must be >= 0 where kept -> (B, H, W) float32 min-depth map, 0 where
-    empty. Kernel A on the card, the plain version on the CPU.
+    empty. Kernel A on the card, the plain version on the CPU
+    (``torch.ops.rdt.zbuffer_min_depth``).
 
     The kernel's map is bit-equal to the plain version's, except where a
     kept depth of exactly +0.0 is a pixel's minimum: the kernel writes -0.0
@@ -180,8 +196,11 @@ def zbuffer_min_depth(lin: torch.Tensor, zf: torch.Tensor, height: int,
     version's +0.0 as a float (``torch.equal``). ``bin_points`` keeps only
     depths > min_depth >= 0, so the main path never hits that case."""
     _check_zbuffer(lin, zf)
-    if not _on_card(lin):
-        return zbuffer_min_depth_reference(lin, zf, height, width)
+    _on_card(lin)
+    return torch.ops.rdt.zbuffer_min_depth(lin, zf, height, width)
+
+
+def _zbuffer_min_depth_cuda(lin, zf, height, width):
     b, p = lin.shape
     out = torch.empty((b, height, width), dtype=torch.float32,
                       device=lin.device)
@@ -195,6 +214,13 @@ def zbuffer_min_depth(lin: torch.Tensor, zf: torch.Tensor, height: int,
     return out
 
 
+def _zbuffer_fake(lin, zf, height, width):
+    return lin.new_empty((lin.shape[0], height, width), dtype=torch.float32)
+
+
+OPS.impl("zbuffer_min_depth", _zbuffer_min_depth_cuda, "CUDA")
+OPS.impl("zbuffer_min_depth", zbuffer_min_depth_reference, "CPU")
+torch.library.register_fake("rdt::zbuffer_min_depth", _zbuffer_fake, lib=OPS)
 zbuffer_min_depth.launches = 0
 
 
@@ -218,7 +244,8 @@ def zbuffer_min_depth_sorted(lin_sorted: torch.Tensor, z_sorted: torch.Tensor,
     """(B, P) int32 linear pixel indices, ascending along each row, with
     ``SORTED_INVALID`` for dropped points, and float32 depths in the same
     order, which must be >= 0 where kept -> (B, H, W) float32 min-depth map,
-    0 where empty. Kernel C on the card, the plain version on the CPU.
+    0 where empty. Kernel C on the card, the plain version on the CPU
+    (``torch.ops.rdt.zbuffer_min_depth_sorted``).
 
     The rows must be sorted (``ops/raster.py::sort_points_by_pixel``); the
     kernel does not check it, as the TPU kernel does not."""
@@ -226,12 +253,15 @@ def zbuffer_min_depth_sorted(lin_sorted: torch.Tensor, z_sorted: torch.Tensor,
     hw = height * width
     if not 0 < hw < SORTED_INVALID:
         raise ValueError(f"height*width={hw} must be in (0, 2**30)")
-    if not _on_card(lin_sorted):
-        return zbuffer_min_depth_sorted_reference(lin_sorted, z_sorted, height,
+    if _on_card(lin_sorted) and lin_sorted.shape[0] > _GRID_Y_MAX:
+        raise ValueError(f"batch {lin_sorted.shape[0]} > {_GRID_Y_MAX}: "
+                         "split the call")
+    return torch.ops.rdt.zbuffer_min_depth_sorted(lin_sorted, z_sorted, height,
                                                   width)
+
+
+def _zbuffer_min_depth_sorted_cuda(lin_sorted, z_sorted, height, width):
     b, p = lin_sorted.shape
-    if b > _GRID_Y_MAX:
-        raise ValueError(f"batch {b} > {_GRID_Y_MAX}: split the call")
     out = torch.empty((b, height, width), dtype=torch.float32,
                       device=lin_sorted.device)
     if b == 0:
@@ -240,12 +270,17 @@ def zbuffer_min_depth_sorted(lin_sorted: torch.Tensor, z_sorted: torch.Tensor,
     with torch.cuda.device(lin_sorted.device):
         err = lib.rdt_zbuffer_min_depth_sorted(
             lin_sorted.data_ptr(), z_sorted.data_ptr(), out.data_ptr(), b, p,
-            hw, torch.cuda.current_stream().cuda_stream)
+            height * width, torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "zbuffer_min_depth_sorted")
     zbuffer_min_depth_sorted.launches += 1
     return out
 
 
+OPS.impl("zbuffer_min_depth_sorted", _zbuffer_min_depth_sorted_cuda, "CUDA")
+OPS.impl("zbuffer_min_depth_sorted", zbuffer_min_depth_sorted_reference,
+         "CPU")
+torch.library.register_fake("rdt::zbuffer_min_depth_sorted", _zbuffer_fake,
+                            lib=OPS)
 zbuffer_min_depth_sorted.launches = 0
 
 
@@ -264,7 +299,7 @@ def _channel_shape(x: torch.Tensor) -> tuple:
     return (-1,)
 
 
-def _check_epilogue(x, scale, bias, residual) -> int:
+def _check_epilogue(x, scale, bias, residual) -> None:
     shape = _channel_shape(x)
     c = x.shape[1] if shape == (1, -1, 1, 1) else x.shape[-1]
     if x.dtype not in _DTYPE_CODE:
@@ -280,7 +315,6 @@ def _check_epilogue(x, scale, bias, residual) -> int:
             raise ValueError("residual must match x in shape, dtype and "
                              "device")
         _channel_shape(residual)  # same memory order as x, or raise
-    return c
 
 
 def scale_bias_relu_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -298,21 +332,39 @@ def scale_bias_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     residual: torch.Tensor | None = None) -> torch.Tensor:
     """``relu(x*scale[c] + bias[c] (+ residual))`` with float32 (C,) scale and
     bias over float32 or bfloat16 ``x`` (NCHW channels_last, or contiguous
-    (..., C)). Kernel B on the card, the plain version on the CPU."""
-    c = _check_epilogue(x, scale, bias, residual)
-    if not _on_card(x):
-        return scale_bias_relu_reference(x, scale, bias, residual)
-    out = torch.empty_like(x)
-    lib = _library("epilogue")
+    (..., C)). Kernel B on the card, the plain version on the CPU
+    (``torch.ops.rdt.scale_bias_relu``)."""
+    _check_epilogue(x, scale, bias, residual)
+    _on_card(x)
+    return torch.ops.rdt.scale_bias_relu(x, scale, bias, residual)
+
+
+def launch_scale_bias_relu(x, scale, bias, residual, out) -> None:
+    """Kernel B's bare launch into ``out``, unchecked and uncounted: the
+    CUDA implementation's body (``chip_smoke.py`` times the operator's host
+    cost against it)."""
     with torch.cuda.device(x.device):
-        err = lib.rdt_scale_bias_relu(
+        err = _library("epilogue").rdt_scale_bias_relu(
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             None if residual is None else residual.data_ptr(), out.data_ptr(),
-            x.numel(), c, _DTYPE_CODE[x.dtype],
+            x.numel(), scale.shape[0], _DTYPE_CODE[x.dtype],
             torch.cuda.current_stream().cuda_stream)
     _check_launch(err, "scale_bias_relu")
+
+
+def _scale_bias_relu_cuda(x, scale, bias, residual=None):
+    out = torch.empty_like(x)
+    launch_scale_bias_relu(x, scale, bias, residual, out)
     scale_bias_relu.launches += 1
     return out
 
 
+def _scale_bias_relu_fake(x, scale, bias, residual=None):
+    return torch.empty_like(x)  # the same memory format: channels_last
+
+
+OPS.impl("scale_bias_relu", _scale_bias_relu_cuda, "CUDA")
+OPS.impl("scale_bias_relu", scale_bias_relu_reference, "CPU")
+torch.library.register_fake("rdt::scale_bias_relu", _scale_bias_relu_fake,
+                            lib=OPS)
 scale_bias_relu.launches = 0

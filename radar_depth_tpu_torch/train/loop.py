@@ -191,7 +191,7 @@ class Trainer:
             if torch.cuda.device_count() > 1:
                 print(f"note: {torch.cuda.device_count()} CUDA devices "
                       f"visible; the port trains on {self.device} only (data "
-                      "parallelism over cards is ROADMAP Queue A item 10)")
+                      "parallelism over cards is ROADMAP Queue A item 4)")
         if (cfg.metric_avg == "batch"
                 and cfg.eval_batch_size not in (0, cfg.batch_size)):
             print("note: --metric-avg batch pools metrics per loop batch "

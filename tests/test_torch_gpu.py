@@ -150,3 +150,64 @@ def test_zbuffer_edge_cases_on_card(case):
             assert (bits(a) == torch.iinfo(torch.int32).min).any()
         else:
             assert torch.equal(bits(a), bits(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_opcheck_on_card(dtype):
+    """torch.library.opcheck on the CUDA implementations of the three
+    operators: schema, fake implementation against the kernel's output
+    (shape, dtype, strides: channels_last kept), tracing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    x, r = (torch.randn(2, 64, 30, 50, generator=g, device=dev).to(
+        dtype, memory_format=torch.channels_last) for _ in range(2))
+    s = torch.rand(64, generator=g, device=dev) + 0.5
+    b = torch.randn(64, generator=g, device=dev)
+    for res in (None, r):
+        torch.library.opcheck(torch.ops.rdt.scale_bias_relu.default,
+                              (x, s, b, res))
+    lin, z, h, w = zbuffer_edge_case("tile_edges")
+    lin_s, z_s = sort_by_pixel(lin, z)
+    lin, z, lin_s, z_s = (torch.from_numpy(a).to(dev)
+                          for a in (lin, z, lin_s, z_s))
+    torch.library.opcheck(torch.ops.rdt.zbuffer_min_depth.default,
+                          (lin, z, h, w))
+    torch.library.opcheck(torch.ops.rdt.zbuffer_min_depth_sorted.default,
+                          (lin_s, z_s, h, w))
+
+
+@pytest.mark.gpu
+def test_export_load_on_card(tmp_path):
+    """A B=2 artifact of the flagship in bfloat16, its serving dtype,
+    exported on the card, loads on the card (device=None), equals
+    Predictor.predict bit for bit, and one call of it launches kernel B at
+    its 84 sites and kernel C once. (In float32 the card's TF32 convolutions
+    differ between the artifact and eager mode by ~1e-5 relative, and eager
+    float32 serving does not repeat bit for bit.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    from radar_depth_tpu_torch.config import ServeConfig
+    from radar_depth_tpu_torch.data import SampleSpec, SyntheticNuScenes
+    from radar_depth_tpu_torch.inference import Predictor, load_serving
+    from radar_depth_tpu_torch.models import create_model, init_random
+
+    cfg = ServeConfig(arch="resnet18_multistage", height=64, width=96,
+                      num_sweeps=3, abs_threshold=8.0, dtype="bfloat16")
+    sd = init_random(create_model(cfg.arch, device="cpu",
+                                  output_size=(64, 96))[0], 5).state_dict()
+    pred = Predictor(cfg, sd)
+    path = str(tmp_path / "card.pt2")
+    pred.export_serving(path, 2)
+    serve = load_serving(path)
+    batch = SyntheticNuScenes(2, spec=SampleSpec(height=64, width=96,
+                                                 num_sweeps=3),
+                              seed=3).batch(range(2))
+    kernels.scale_bias_relu.launches = 0
+    kernels.zbuffer_min_depth_sorted.launches = 0
+    got = serve(batch)
+    assert kernels.scale_bias_relu.launches == 84
+    assert kernels.zbuffer_min_depth_sorted.launches == 1
+    np.testing.assert_array_equal(got, pred.predict(batch))

@@ -574,13 +574,13 @@ UNPORTED = [(["--decoder", "deconv2"], "item 9"),
             (["--remat"], "item 9"),
             (["--stage2-coarse"], "item 9"),
             (["--pretrained", "w.pth"], "item 9"),
-            (["--spatial", "2"], "item 10")]
+            (["--spatial", "2"], "Queue A item 5")]
 
 
 @pytest.mark.parametrize("extra,item", UNPORTED,
                          ids=[" ".join(a) for a, _ in UNPORTED])
 def test_unported_settings_raise(tmp_path, extra, item):
-    """--spatial (ROADMAP item 10) parses, and building the Trainer with it
+    """--spatial (ROADMAP Queue A item 5) parses, and building the Trainer with it
     raises NotImplementedError naming the item, before the output dir is
     made. The settings that item 9 ported (archs, decoders, --sparsifier,
     --remat, --stage2-coarse, --pretrained with a torchvision state_dict on
@@ -593,7 +593,7 @@ def test_unported_settings_raise(tmp_path, extra, item):
         extra = [str(tmp_path / a) if a == "w.pth" else a for a in extra]
     argv = ["--arch", "resnet18_multistage", "--platform", "cpu",
             "--output-dir", str(out)] + extra
-    if item == "item 10":
+    if item == "Queue A item 5":
         with pytest.raises(NotImplementedError, match=item):
             Trainer(config.parse_command(argv))
         assert not out.exists()

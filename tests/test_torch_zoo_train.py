@@ -416,7 +416,7 @@ def test_unported_names_only_spatial():
             "--modality", "d"]
     assert config.unported(config.parse_command(argv)) == []
     assert config.unported(config.parse_command(argv + ["--spatial", "2"])) \
-        == ["--spatial 2 (ROADMAP Queue A item 10)"]
+        == ["--spatial 2 (ROADMAP Queue A item 5)"]
     for arch in config.ARCH_NAMES:
         assert arch in ARCH_REGISTRY
         assert config.unported(config.parse_command(["--arch", arch])) == []
