@@ -92,6 +92,22 @@ Phases, each printing one JSON line:
                  device time per step, epoch walls, checkpoint size and save
                  time, --evaluate img/s
   profile_harness  device time and idle share over one harness train epoch
+  data_parallel  the data-parallel path (parallel/mesh.py) with the flagship
+                 at full width: (a) a 1-rank NCCL group on card 0, 6 float32
+                 (TF32 off) and 6 bfloat16 B=8 train steps through the DP
+                 path bit-equal to the same steps without a group, and one
+                 eval step bit-equal too, launches counted (kernel C 1 per
+                 step; 84 B + 1 C per eval step), all-reduces per step, the
+                 ms of the flat gradient all-reduce, img/s of the DP path
+                 beside the plain step's; (b) two processes on card 0 over
+                 gloo (NCCL refuses two ranks on one device), 4 rows each
+                 of B=8, one float32 train step against the 1-process B=8
+                 step under phase train's gates, the ranks' parameters
+                 bit-equal, per rank kernel C 1 per train step and 84 B + 1
+                 C per eval step, eval sums rtol 1e-4 (a correctness check,
+                 not a scaling number); (c) torchrun --nproc-per-node 1 of
+                 train.main (NCCL) for 1 epoch on the harness shards, its
+                 test.csv row against the harness's straight run's epoch 0
 Then the script's wall time, the kernels' summary line (kernel B's with its
 launches per forward for each configuration), nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line;
@@ -1842,11 +1858,20 @@ def check_run_dir(run_dir, epochs, cfg):
     return best, steps
 
 
-def phase_harness(torch, np, dev, bare_step):
-    """The training harness through train.main, at full width."""
-    import shutil
-    import tempfile
+def harness_argv(data):
+    """train.main's flags of the harness phase, on the packed shards in
+    ``data``."""
+    return ["--arch", "resnet18_multistage", "--decoder", "upproj",
+            "--dtype", "bfloat16", "-b", str(B_TRAIN),
+            "--dataset", "packed", "--data-root", data,
+            "--height", str(H), "--width", str(W), "--num-sweeps", "5",
+            "--print-freq", "100"]
 
+
+def phase_harness(torch, np, dev, bare_step, tmp):
+    """The training harness through train.main, at full width, in the
+    directory ``tmp`` (its packed shards and the straight 3-epoch run are
+    phase data_parallel's reference)."""
     from radar_depth_tpu_torch.config import parse_command
     from radar_depth_tpu_torch.data.packed import PackedDataset
     from radar_depth_tpu_torch.inference import Predictor
@@ -1854,145 +1879,471 @@ def phase_harness(torch, np, dev, bare_step):
     from radar_depth_tpu_torch.train.main import run
     from radar_depth_tpu_torch.train.step import make_predict_fn
 
-    tmp = tempfile.mkdtemp(prefix="rdt-harness-")
-    try:
-        data = os.path.join(tmp, "data")
-        data_s, data_bytes = write_harness_data(data)
-        base = ["--arch", "resnet18_multistage", "--decoder", "upproj",
-                "--dtype", "bfloat16", "-b", str(B_TRAIN),
-                "--dataset", "packed", "--data-root", data,
-                "--height", str(H), "--width", str(W), "--num-sweeps", "5",
-                "--print-freq", "100"]
-        run_dir = os.path.join(tmp, "run")
+    data = os.path.join(tmp, "data")
+    data_s, data_bytes = write_harness_data(data)
+    base = harness_argv(data)
+    run_dir = os.path.join(tmp, "run")
 
-        # the main path, counted: 2 epochs through train.main
+    # the main path, counted: 2 epochs through train.main
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with count_by_phase() as phases:
+        r2 = run(base + ["--epochs", "2", "--output-dir", run_dir])
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    if r2["reader"] != "native" or not r2["host_augment"]:
+        raise AssertionError(f"harness reader {r2['reader']}, host "
+                             f"augmentation {r2['host_augment']}")
+    steps = sum(h["train"]["steps"] for h in r2["history"])
+    val_batches = 2 * math.ceil(HARNESS_VAL / B_TRAIN)
+    panels = 2  # one panel row per epoch (val_viz_every=50)
+    want_train = {KERNELS["A"]: 0, KERNELS["B"]: 0, KERNELS["C"]: steps}
+    want_val = {KERNELS["A"]: 0,
+                KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD
+                * (val_batches + panels),
+                KERNELS["C"]: val_batches + panels}
+    if (phases.counts["train_epoch"] != want_train
+            or phases.counts["validate"] != want_val
+            or launches != {k: want_train[k] + want_val[k]
+                            for k in launches}):
+        raise AssertionError(
+            f"harness launches {launches} (train {phases.counts}), "
+            f"expected train {want_train}, val {want_val}")
+    if steps != 2 * (HARNESS_TRAIN // B_TRAIN):
+        raise AssertionError(f"{steps} train steps in 2 epochs")
+    best2, steps2 = check_run_dir(run_dir, 2, r2["cfg"])
+
+    # --resume to epoch 3 against a straight 3-epoch run
+    r3 = run(["--resume", run_dir, "--epochs", "3", "--output-dir",
+              run_dir, "--print-freq", "100"])
+    straight = os.path.join(tmp, "straight")
+    r3s = run(base + ["--epochs", "3", "--output-dir", straight])
+    best, ckpt_steps = check_run_dir(run_dir, 3, r3["cfg"])
+    check_run_dir(straight, 3, r3s["cfg"])
+    got = csv_rows(os.path.join(run_dir, "test.csv"))
+    want = csv_rows(os.path.join(straight, "test.csv"))
+    resume = {"epoch_rel_diff": [row_rel_diff(a, b)
+                                 for a, b in zip(got, want)],
+              "last_row_resumed": {k: float(got[-1][k])
+                                   for k in CSV_METRICS},
+              "last_row_straight": {k: float(want[-1][k])
+                                    for k in CSV_METRICS}}
+    resume["bit_equal_last_row"] = all(got[-1][k] == want[-1][k]
+                                       for k in CSV_METRICS)
+    if resume["epoch_rel_diff"][-1] > RESUME_RTOL:
+        raise AssertionError(f"resumed vs straight run: {resume}")
+
+    # --evaluate reproduces the best stored row
+    t0 = time.perf_counter()
+    ev = run(["--evaluate", run_dir, "--eval-splits", "--output-dir",
+              os.path.join(tmp, "eval")])
+    eval_call_s = time.perf_counter() - t0
+    val = ev["validation"]
+    # the stored row is rounded to 6 decimals
+    eval_err = max((abs(val[k] - float(best[k])) - 5e-7)
+                   / max(abs(float(best[k])), 1e-12)
+                   for k in CSV_METRICS)
+    if eval_err > EVAL_RTOL or set(ev["splits"]) != {"day", "night"}:
+        raise AssertionError(f"--evaluate {val} vs best row {best} "
+                             f"({eval_err:.2e}), splits "
+                             f"{sorted(ev['splits'])}")
+    eval_batches = math.ceil(HARNESS_VAL / B_TRAIN)
+    eval_loop_s = eval_batches * (val["data_time"] + val["gpu_time"])
+
+    # Predictor.from_run against the Trainer model's eval prediction
+    b8 = PackedDataset(os.path.join(data, "val")).batch(range(B_TRAIN))
+    served = Predictor.from_run(run_dir).predict(b8)
+    tr = Trainer(parse_command(["--evaluate", run_dir, "--output-dir",
+                                os.path.join(tmp, "eval2")]))
+    tr.load_for_evaluate()
+    own = make_predict_fn(tr.model, tr.arch_spec, tr.cfg)(b8)[
+        "pred"][..., 0].float().cpu().numpy()
+    tr.close()
+    del tr
+    if served.shape != (B_TRAIN, H, W) or not np.isfinite(served).all():
+        raise AssertionError("from_run prediction shape or values")
+    np.testing.assert_allclose(served, own, **SMALL_TOL)
+
+    # the bare bf16 step again, now with the Trainer's deterministic
+    # cuDNN convolutions (the train phase ran without them)
+    model, _, state, step = train_setup(torch, train_config("bfloat16"),
+                                        dev)
+    _, times = run_steps(torch, dev, step, state, b8, TRAIN_STEPS)
+    det_step = B_TRAIN / statistics.median(times[1:])
+    del model, state, step
+
+    hist = r2["history"] + r3["history"]
+    out = {
+        "phase": "harness", "arch": "resnet18_multistage",
+        "decoder": "upproj", "dtype": "bfloat16", "batch": B_TRAIN,
+        "hw": [H, W], "sweeps": 5, "samples": [HARNESS_TRAIN,
+                                               HARNESS_VAL],
+        "data_write_s": data_s, "data_bytes": data_bytes,
+        "reader": r2["reader"], "host_augment": r2["host_augment"],
+        "launches": launches, "launches_by_phase": phases.counts,
+        "train_steps": steps, "val_forwards": val_batches + panels,
+        "fit_2_epochs_s": fit_s,
+        "epochs": [{"epoch": h["epoch"], "walls_s": h["walls"],
+                    "img_per_s": h["train"]["steps"] * B_TRAIN
+                    / h["walls"]["train"],
+                    "data_time_s": h["train"]["data_time"],
+                    "gpu_time_s": h["train"]["gpu_time"],
+                    "loss": h["train"]["loss"],
+                    "val_rmse": h["val"]["rmse"],
+                    "val_data_time_s": h["val"]["data_time"],
+                    "val_gpu_time_s": h["val"]["gpu_time"]}
+                   for h in hist],
+        "bare_step_img_per_s_bf16": bare_step,
+        "bare_step_img_per_s_bf16_deterministic": det_step,
+        "cudnn_deterministic": torch.backends.cudnn.deterministic,
+        "checkpoints": r2["saves"] + r3["saves"],
+        "checkpoint_steps": ckpt_steps,
+        "resume": resume,
+        "evaluate": {"rel_err_vs_best_row": eval_err,
+                     "img_per_s": HARNESS_VAL / eval_loop_s,
+                     "call_s": eval_call_s,
+                     "splits": {t: m["count"]
+                                for t, m in ev["splits"].items()}},
+        "from_run_vs_trainer_max_abs": float(np.abs(served - own).max()),
+    }
+    emit(out)
+    prof = profile_harness(torch, base, os.path.join(tmp, "prof"))
+    return out, prof
+
+
+# ------------------------------------------------------ data parallelism
+
+DP_STEPS = 6  # steps of each path in (a); img/s is the median after the first
+DP_TIMEOUT_S = 600  # each process that phase data_parallel starts
+DP_BACKEND = "nccl"  # of (a) and (c): one rank on the card
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_procs(cmds, env_of, timeout):
+    """Start every command at once (each in its own session, with
+    ``env_of(i)``), wait for all, kill each whole session that outlives
+    ``timeout``. Returns [(returncode, stdout, stderr)]."""
+    import signal
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(cmd, cwd=here, env=env_of(i),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, start_new_session=True)
+             for i, cmd in enumerate(cmds)]
+    deadline = time.monotonic() + timeout
+    out = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            out.append((p.returncode, o, e))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    return out
+
+
+def dp_env(rank, world, port):
+    """torchrun's variables for ``rank`` of ``world`` processes on card 0,
+    the rendezvous on this host."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(port), PYTHONPATH=here)
+
+
+def mesh_from_env(port, **kw):
+    """``make_mesh(**kw)`` in this process as rank 0 of 1 under torchrun's
+    variables (``dp_env``), which are then restored."""
+    from radar_depth_tpu_torch.parallel import mesh as pm
+
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    saved = {k: os.environ.get(k) for k in keys}
+    env = dp_env(0, 1, port)
+    os.environ.update({k: env[k] for k in keys})
+    try:
+        return pm.make_mesh(**kw)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class deterministic_cudnn:
+    """Context: cuDNN's deterministic algorithms (the Trainer's), restored
+    on exit."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        self.saved = self.torch.backends.cudnn.deterministic
+        self.torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        self.torch.backends.cudnn.deterministic = self.saved
+
+
+def dp_worker(root) -> int:
+    """One rank of part (b) of phase data_parallel: two processes on card
+    0 over gloo, each with its 4 rows of the B=8 batch: one float32 train
+    step and one eval step through the DP path, counted; prints one JSON
+    line; rank 0 writes its model state to ``root``."""
+    import numpy as np
+    import torch
+
+    from radar_depth_tpu_torch.parallel import mesh as pm
+    from radar_depth_tpu_torch.train.step import make_eval_step, make_train_step
+
+    mesh = pm.make_mesh(backend="gloo")  # both ranks on card 0 (dp_env)
+    dev = mesh.device
+    sd = torch.load(os.path.join(root, "weights.pt"), map_location="cpu",
+                    weights_only=True)
+    rows = pm.local_rows(dict(np.load(os.path.join(root, "batch.npz"))),
+                         mesh)
+    cfg = train_config("float32")
+    with tf32(torch, False), deterministic_cudnn(torch):
+        model, spec, state, _ = train_setup(torch, cfg, dev, state_dict=sd)
+        step = make_train_step(model, spec, cfg, mesh=mesh)
         torch.cuda.synchronize()
         reset_launches()
+        pm.COLLECTIVES.clear()
         t0 = time.perf_counter()
-        with count_by_phase() as phases:
-            r2 = run(base + ["--epochs", "2", "--output-dir", run_dir])
-        fit_s = time.perf_counter() - t0
-        launches = read_launches()
-        if r2["reader"] != "native" or not r2["host_augment"]:
-            raise AssertionError(f"harness reader {r2['reader']}, host "
-                                 f"augmentation {r2['host_augment']}")
-        steps = sum(h["train"]["steps"] for h in r2["history"])
-        val_batches = 2 * math.ceil(HARNESS_VAL / B_TRAIN)
-        panels = 2  # one panel row per epoch (val_viz_every=50)
-        want_train = {KERNELS["A"]: 0, KERNELS["B"]: 0, KERNELS["C"]: steps}
-        want_val = {KERNELS["A"]: 0,
-                    KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD
-                    * (val_batches + panels),
-                    KERNELS["C"]: val_batches + panels}
-        if (phases.counts["train_epoch"] != want_train
-                or phases.counts["validate"] != want_val
-                or launches != {k: want_train[k] + want_val[k]
-                                for k in launches}):
-            raise AssertionError(
-                f"harness launches {launches} (train {phases.counts}), "
-                f"expected train {want_train}, val {want_val}")
-        if steps != 2 * (HARNESS_TRAIN // B_TRAIN):
-            raise AssertionError(f"{steps} train steps in 2 epochs")
-        best2, steps2 = check_run_dir(run_dir, 2, r2["cfg"])
+        sums = {k: float(v) for k, v in step(
+            state, rows,
+            generator=torch.Generator(device=dev).manual_seed(3)).items()}
+        step_s = time.perf_counter() - t0
+        train_launches, collectives = read_launches(), dict(pm.COLLECTIVES)
+        replicated = pm.assert_replicated(model, mesh)
+        if mesh.is_main:
+            torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                       os.path.join(root, "state.pt"))
+        ev_model = train_setup(torch, cfg, dev, state_dict=sd)[0]
+        ev = make_eval_step(ev_model, spec, cfg, mesh=mesh)
+        reset_launches()
+        ev_sums = {k: float(v) for k, v in ev(rows).items()}
+        eval_launches = read_launches()
+    print(json.dumps({"rank": mesh.rank, "world": mesh.world,
+                      "backend": mesh.backend, "rows": len(rows["image"]),
+                      "sums": sums, "eval_sums": ev_sums,
+                      "train_launches": train_launches,
+                      "eval_launches": eval_launches,
+                      "collectives": collectives, "replicated": replicated,
+                      "step_s": step_s}), flush=True)
+    mesh.barrier()
+    pm.destroy_mesh(mesh)
+    return 0
 
-        # --resume to epoch 3 against a straight 3-epoch run
-        r3 = run(["--resume", run_dir, "--epochs", "3", "--output-dir",
-                  run_dir, "--print-freq", "100"])
-        straight = os.path.join(tmp, "straight")
-        r3s = run(base + ["--epochs", "3", "--output-dir", straight])
-        best, ckpt_steps = check_run_dir(run_dir, 3, r3["cfg"])
-        check_run_dir(straight, 3, r3s["cfg"])
-        got = csv_rows(os.path.join(run_dir, "test.csv"))
-        want = csv_rows(os.path.join(straight, "test.csv"))
-        resume = {"epoch_rel_diff": [row_rel_diff(a, b)
-                                     for a, b in zip(got, want)],
-                  "last_row_resumed": {k: float(got[-1][k])
-                                       for k in CSV_METRICS},
-                  "last_row_straight": {k: float(want[-1][k])
-                                        for k in CSV_METRICS}}
-        resume["bit_equal_last_row"] = all(got[-1][k] == want[-1][k]
-                                           for k in CSV_METRICS)
-        if resume["epoch_rel_diff"][-1] > RESUME_RTOL:
-            raise AssertionError(f"resumed vs straight run: {resume}")
 
-        # --evaluate reproduces the best stored row
+def dp_steps(torch, dev, cfg, sd, batch, mesh):
+    """DP_STEPS train steps from ``sd`` on ``batch``, each drawing from a
+    generator seeded 10 + i, through the DP path on ``mesh`` (None: the
+    plain step), counted. Returns model, per-step sums and seconds,
+    launches, collectives."""
+    from radar_depth_tpu_torch.parallel import mesh as pm
+    from radar_depth_tpu_torch.train.step import make_train_step
+
+    model, spec, state, _ = train_setup(torch, cfg, dev, state_dict=sd)
+    step = make_train_step(model, spec, cfg, mesh=mesh)
+    gen = torch.Generator(device=dev)
+    sums, times = [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    pm.COLLECTIVES.clear()
+    for i in range(DP_STEPS):
+        gen.manual_seed(10 + i)
         t0 = time.perf_counter()
-        ev = run(["--evaluate", run_dir, "--eval-splits", "--output-dir",
-                  os.path.join(tmp, "eval")])
-        eval_call_s = time.perf_counter() - t0
-        val = ev["validation"]
-        # the stored row is rounded to 6 decimals
-        eval_err = max((abs(val[k] - float(best[k])) - 5e-7)
-                       / max(abs(float(best[k])), 1e-12)
-                       for k in CSV_METRICS)
-        if eval_err > EVAL_RTOL or set(ev["splits"]) != {"day", "night"}:
-            raise AssertionError(f"--evaluate {val} vs best row {best} "
-                                 f"({eval_err:.2e}), splits "
-                                 f"{sorted(ev['splits'])}")
-        eval_batches = math.ceil(HARNESS_VAL / B_TRAIN)
-        eval_loop_s = eval_batches * (val["data_time"] + val["gpu_time"])
+        sums.append({k: float(v) for k, v in step(state, batch,
+                                                  generator=gen).items()})
+        times.append(time.perf_counter() - t0)
+    return {"model": model, "spec": spec, "sums": sums, "times": times,
+            "launches": read_launches(), "collectives": dict(pm.COLLECTIVES)}
 
-        # Predictor.from_run against the Trainer model's eval prediction
-        b8 = PackedDataset(os.path.join(data, "val")).batch(range(B_TRAIN))
-        served = Predictor.from_run(run_dir).predict(b8)
-        tr = Trainer(parse_command(["--evaluate", run_dir, "--output-dir",
-                                    os.path.join(tmp, "eval2")]))
-        tr.load_for_evaluate()
-        own = make_predict_fn(tr.model, tr.arch_spec, tr.cfg)(b8)[
-            "pred"][..., 0].float().cpu().numpy()
-        tr.close()
-        del tr
-        if served.shape != (B_TRAIN, H, W) or not np.isfinite(served).all():
-            raise AssertionError("from_run prediction shape or values")
-        np.testing.assert_allclose(served, own, **SMALL_TOL)
 
-        # the bare bf16 step again, now with the Trainer's deterministic
-        # cuDNN convolutions (the train phase ran without them)
-        model, _, state, step = train_setup(torch, train_config("bfloat16"),
-                                            dev)
-        _, times = run_steps(torch, dev, step, state, b8, TRAIN_STEPS)
-        det_step = B_TRAIN / statistics.median(times[1:])
-        del model, state, step
+def states_equal(torch, a, b) -> bool:
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k])
+                                          for k in sa)
 
-        hist = r2["history"] + r3["history"]
-        out = {
-            "phase": "harness", "arch": "resnet18_multistage",
-            "decoder": "upproj", "dtype": "bfloat16", "batch": B_TRAIN,
-            "hw": [H, W], "sweeps": 5, "samples": [HARNESS_TRAIN,
-                                                   HARNESS_VAL],
-            "data_write_s": data_s, "data_bytes": data_bytes,
-            "reader": r2["reader"], "host_augment": r2["host_augment"],
-            "launches": launches, "launches_by_phase": phases.counts,
-            "train_steps": steps, "val_forwards": val_batches + panels,
-            "fit_2_epochs_s": fit_s,
-            "epochs": [{"epoch": h["epoch"], "walls_s": h["walls"],
-                        "img_per_s": h["train"]["steps"] * B_TRAIN
-                        / h["walls"]["train"],
-                        "data_time_s": h["train"]["data_time"],
-                        "gpu_time_s": h["train"]["gpu_time"],
-                        "loss": h["train"]["loss"],
-                        "val_rmse": h["val"]["rmse"],
-                        "val_data_time_s": h["val"]["data_time"],
-                        "val_gpu_time_s": h["val"]["gpu_time"]}
-                       for h in hist],
-            "bare_step_img_per_s_bf16": bare_step,
-            "bare_step_img_per_s_bf16_deterministic": det_step,
-            "cudnn_deterministic": torch.backends.cudnn.deterministic,
-            "checkpoints": r2["saves"] + r3["saves"],
-            "checkpoint_steps": ckpt_steps,
-            "resume": resume,
-            "evaluate": {"rel_err_vs_best_row": eval_err,
-                         "img_per_s": HARNESS_VAL / eval_loop_s,
-                         "call_s": eval_call_s,
-                         "splits": {t: m["count"]
-                                    for t, m in ev["splits"].items()}},
-            "from_run_vs_trainer_max_abs": float(np.abs(served - own).max()),
-        }
-        emit(out)
-        prof = profile_harness(torch, base, os.path.join(tmp, "prof"))
-        return out, prof
+
+def phase_data_parallel(torch, np, dev, batch, tmp):
+    """The DP path (parallel/mesh.py) on the card: (a) a 1-rank NCCL group,
+    (b) two gloo processes on card 0, (c) torchrun with one NCCL rank
+    through train.main."""
+    from radar_depth_tpu_torch.parallel import mesh as pm
+    from radar_depth_tpu_torch.train.step import make_eval_step
+
+    b8 = {k: v[:B_TRAIN] for k, v in batch.items()}
+    sd = train_init(torch, train_setup(torch, train_config("float32"),
+                                       "cpu")[0], 5).state_dict()
+    out = {"phase": "data_parallel", "batch": B_TRAIN, "steps": DP_STEPS}
+
+    # (a) a 1-rank NCCL group: the DP path bit-equal to the plain step
+    mesh = mesh_from_env(free_port())
+    if (mesh.backend, mesh.world, mesh.device) != (DP_BACKEND, 1, dev):
+        raise AssertionError(f"data_parallel mesh {mesh}")
+    a, dp_launches = {}, {k: 0 for k in KERNELS.values()}
+    try:
+        with tf32(torch, False), deterministic_cudnn(torch):
+            for dtype in ("float32", "bfloat16"):
+                cfg = train_config(dtype)
+                plain = dp_steps(torch, dev, cfg, sd, b8, None)
+                dp = dp_steps(torch, dev, cfg, sd, b8, mesh)
+                want = {KERNELS["A"]: 0, KERNELS["B"]: 0,
+                        KERNELS["C"]: DP_STEPS}
+                if plain["launches"] != want or dp["launches"] != want:
+                    raise AssertionError(
+                        f"data_parallel {dtype} launches {plain['launches']}"
+                        f" / {dp['launches']}, expected {want}")
+                if plain["collectives"] or set(dp["collectives"]) != {
+                        "all_reduce"}:
+                    raise AssertionError(f"collectives {plain['collectives']}"
+                                         f" / {dp['collectives']}")
+                bit_equal = (plain["sums"] == dp["sums"]
+                             and states_equal(torch, plain["model"],
+                                              dp["model"]))
+                if not bit_equal:
+                    raise AssertionError(f"data_parallel {dtype}: the 1-rank "
+                                         "group's steps differ from the plain"
+                                         " steps")
+                for k, n in dp["launches"].items():
+                    dp_launches[k] += n
+                a[dtype] = {
+                    "bit_equal": bit_equal,
+                    "losses": [x["loss"] for x in dp["sums"]],
+                    "collectives_per_step":
+                        dp["collectives"]["all_reduce"] / DP_STEPS,
+                    "img_per_s_dp": B_TRAIN / statistics.median(
+                        dp["times"][1:]),
+                    "img_per_s_plain": B_TRAIN / statistics.median(
+                        plain["times"][1:]),
+                    "step_ms_dp": [t * 1e3 for t in dp["times"]],
+                    "step_ms_plain": [t * 1e3 for t in plain["times"]]}
+            # one eval step through the group, beside the plain eval step
+            model, spec = dp["model"], dp["spec"]
+            cfg = train_config("bfloat16")
+            want_ev = make_eval_step(model, spec, cfg)(b8)
+            reset_launches()
+            pm.COLLECTIVES.clear()
+            got_ev = make_eval_step(model, spec, cfg, mesh=mesh)(b8)
+            ev_launches = read_launches()
+            expect = {KERNELS["A"]: 0, KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD,
+                      KERNELS["C"]: 1}
+            if ev_launches != expect or {k: float(v) for k, v in
+                                         got_ev.items()} != {
+                    k: float(v) for k, v in want_ev.items()}:
+                raise AssertionError(f"data_parallel eval: launches "
+                                     f"{ev_launches}, sums {got_ev} vs "
+                                     f"{want_ev}")
+            for k, n in ev_launches.items():
+                dp_launches[k] += n
+            a["eval"] = {"launches": ev_launches, "bit_equal": True,
+                         "collectives": dict(pm.COLLECTIVES)}
+            grads = [torch.ones_like(p) for p in model.parameters()]
+            a["grad_all_reduce"] = {
+                "tensors": len(grads),
+                "bytes": sum(g.numel() * g.element_size() for g in grads),
+                "ms": cuda_ms(torch, lambda: pm.all_reduce_sum(grads, mesh))}
+            del model, grads, plain, dp
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        pm.destroy_mesh(mesh)
+    torch.cuda.empty_cache()
+    out["nccl_world1"] = a
+    out["launches"] = dp_launches
+
+    # (b) two processes on card 0 over gloo, each with 4 rows of B=8
+    root = os.path.join(tmp, "dp")
+    os.makedirs(root, exist_ok=True)
+    torch.save(sd, os.path.join(root, "weights.pt"))
+    np.savez(os.path.join(root, "batch.npz"), **b8)
+    port = free_port()
+    cmd = [sys.executable, os.path.abspath(__file__), "--dp-worker", root]
+    t0 = time.perf_counter()
+    results = run_procs([cmd, cmd], lambda r: dp_env(r, 2, port),
+                        DP_TIMEOUT_S)
+    two_s = time.perf_counter() - t0
+    lines = {}
+    for rank, (rc, o, e) in enumerate(results):
+        if rc != 0:
+            raise AssertionError(f"data_parallel rank {rank} exit {rc}:\n"
+                                 f"{o[-2000:]}\n{e[-4000:]}")
+        rec = json.loads([x for x in o.splitlines() if x.startswith("{")][-1])
+        lines[rec["rank"]] = rec
+    cfg = train_config("float32")
+    with tf32(torch, False), deterministic_cudnn(torch):
+        model, spec, state, step = train_setup(torch, cfg, dev,
+                                               state_dict=sd)
+        ref = step(state, b8,
+                   generator=torch.Generator(device=dev).manual_seed(3))
+        ref_ev = make_eval_step(train_setup(torch, cfg, dev, state_dict=sd)[0],
+                                spec, cfg)(b8)
+        got = train_setup(torch, cfg, dev, state_dict=torch.load(
+            os.path.join(root, "state.pt"), weights_only=True))[0]
+    cmp = compare_steps(np, {k: v.double() for k, v in sd.items()}, got,
+                        model, lines[0]["sums"], ref,
+                        "data_parallel 2 ranks vs 1 process")
+    ev_err = max(abs(lines[r]["eval_sums"][k] - float(v))
+                 / max(abs(float(v)), 1e-30)
+                 for r in lines for k, v in ref_ev.items())
+    want_train = {KERNELS["A"]: 0, KERNELS["B"]: 0, KERNELS["C"]: 1}
+    want_eval = {KERNELS["A"]: 0, KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD,
+                 KERNELS["C"]: 1}
+    if (sorted(lines) != [0, 1] or ev_err > SUMS_RTOL
+            or lines[0]["sums"] != lines[1]["sums"]
+            or not all(r["replicated"] and r["backend"] == "gloo"
+                       and r["rows"] == B_TRAIN // 2
+                       and r["train_launches"] == want_train
+                       and r["eval_launches"] == want_eval
+                       for r in lines.values())):
+        raise AssertionError(f"data_parallel 2 ranks: {lines}, eval sums "
+                             f"rel err {ev_err:.2e}")
+    out["gloo_two_ranks"] = {
+        "vs_one_process": cmp, "eval_sums_max_rel": ev_err,
+        "launches_per_rank": {"train_step": [lines[r]["train_launches"]
+                                             for r in sorted(lines)],
+                              "eval_step": [lines[r]["eval_launches"]
+                                            for r in sorted(lines)]},
+        "collectives_per_rank_step": lines[0]["collectives"],
+        "params_bit_equal_across_ranks": True, "seconds": two_s}
+    del model, state, step, got
+    torch.cuda.empty_cache()
+
+    # (c) torchrun, one NCCL rank, train.main on the harness shards
+    run_dir = os.path.join(tmp, "dp_cli")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "radar_depth_tpu_torch.train.main",
+           *harness_argv(os.path.join(tmp, "data")), "--epochs", "1",
+           "--output-dir", run_dir]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    (rc, o, e), = run_procs([cmd], lambda _: dict(os.environ, PYTHONPATH=here),
+                            DP_TIMEOUT_S)
+    cli_s = time.perf_counter() - t0
+    if rc != 0 or f"1 ranks ({DP_BACKEND})" not in o:
+        raise AssertionError(f"torchrun train.main exit {rc}:\n{o[-2000:]}\n"
+                             f"{e[-4000:]}")
+    row = csv_rows(os.path.join(run_dir, "test.csv"))[0]
+    want = csv_rows(os.path.join(tmp, "straight", "test.csv"))[0]
+    rel = row_rel_diff(row, want)
+    if rel > RESUME_RTOL:
+        raise AssertionError(f"torchrun row {row} vs non-distributed {want}")
+    out["torchrun_nccl_world1"] = {
+        "seconds": cli_s, "row_rel_diff": rel,
+        "bit_equal_row": all(row[k] == want[k] for k in CSV_METRICS),
+        "row": {k: float(row[k]) for k in CSV_METRICS}}
+    emit(out)
+    return out
 
 
 def profile_harness(torch, base, out_dir):
@@ -2015,6 +2366,9 @@ def profile_harness(torch, base, out_dir):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
+    ap.add_argument("--dp-worker", metavar="DIR",
+                    help="run one rank of phase data_parallel's part (b) on "
+                         "the files in DIR (the phase starts these itself)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2032,6 +2386,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port is not importable here ({e})",
               file=sys.stderr)
         return 2
+    if args.dp_worker:
+        return dp_worker(args.dp_worker)
 
     dev = torch.device("cuda", 0)
     t_start = t0 = time.perf_counter()
@@ -2077,8 +2433,16 @@ def main(argv=None) -> int:
     prof_train = phase_profile_train(torch, dev, trained, batch)
     del trained
     torch.cuda.empty_cache()
-    harness, prof_harness = phase_harness(
-        torch, np, dev, train["bfloat16"]["img_per_s"])
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="rdt-harness-")
+    try:
+        harness, prof_harness = phase_harness(
+            torch, np, dev, train["bfloat16"]["img_per_s"], tmp)
+        dp = phase_data_parallel(torch, np, dev, batch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     stem = next(r for r in epi if r["dtype"] == "bfloat16"
                 and not r["residual"] and r["shape_nchw"][1] == 64
@@ -2092,6 +2456,7 @@ def main(argv=None) -> int:
          "replaces": "radar_depth_tpu/ops/pallas_kernels.py:71",
          "launches": launches_sc[KERNELS["A"]],
          "launches_harness": harness["launches"][KERNELS["A"]],
+         "launches_data_parallel": dp["launches"][KERNELS["A"]],
          "launches_export_call": export["scatter"]["launches"][KERNELS["A"]],
          "max_abs_err": 0.0,
          "ms": serve["ms"], "ms_cold": serve["ms_cold"],
@@ -2106,6 +2471,10 @@ def main(argv=None) -> int:
          "replaces": "radar_depth_tpu/ops/pallas_kernels.py:251",
          "launches": launches[KERNELS["B"]],
          "launches_harness": harness["launches"][KERNELS["B"]],
+         "launches_data_parallel": dp["launches"][KERNELS["B"]],
+         "launches_data_parallel_rank_eval_step": [
+             r[KERNELS["B"]] for r in dp["gloo_two_ranks"][
+                 "launches_per_rank"]["eval_step"]],
          "launches_serve_http": {
              k: r["launches"][KERNELS["B"]]
              for k, r in serve_http["requests"].items()},
@@ -2127,6 +2496,10 @@ def main(argv=None) -> int:
          "replaces": "radar_depth_tpu/ops/pallas_kernels.py:176",
          "launches": train_launches["float32"][KERNELS["C"]],
          "launches_harness": harness["launches"][KERNELS["C"]],
+         "launches_data_parallel": dp["launches"][KERNELS["C"]],
+         "launches_data_parallel_rank_train_step": [
+             r[KERNELS["C"]] for r in dp["gloo_two_ranks"][
+                 "launches_per_rank"]["train_step"]],
          "launches_serve_http": {
              k: r["launches"][KERNELS["C"]]
              for k, r in serve_http["requests"].items()},
@@ -2149,10 +2522,12 @@ def main(argv=None) -> int:
                                     "serve_scatter": launches_sc,
                                     "train": train_launches,
                                     "eval": ev["launches"],
-                                    "harness": harness["launches"]},
+                                    "harness": harness["launches"],
+                                    "data_parallel": dp["launches"]},
                        "train": train, "eval": ev, "profile": prof,
                        "profile_train": prof_train,
                        "harness": harness, "profile_harness": prof_harness,
+                       "data_parallel": dp,
                        "serve_http": serve_http, "export": export,
                        "epilogue_host_us": epi_host,
                        "zoo": zoo, "profile_zoo": prof_zoo,

@@ -8,6 +8,11 @@ parses here and runs, except ``--spatial`` > 1, which parses and loads and
 for which ``require_ported`` (called by the Trainer and
 ``Predictor.from_run``) raises ``NotImplementedError`` naming the ROADMAP
 item that ports it.
+
+Data parallelism takes no flag, as in the JAX CLI (which takes every
+visible device): ``torchrun``'s environment makes the mesh
+(``parallel/mesh.py``), and ``batch_size`` and ``eval_batch_size`` are then
+global batch sizes, split evenly over the ranks.
 """
 
 from __future__ import annotations
@@ -152,9 +157,10 @@ class TrainConfig:
     model: ModelConfig = ModelConfig()
     optim: OptimConfig = OptimConfig()
     augment: AugmentConfig = AugmentConfig()
-    batch_size: int = 8
-    # val-pass batch size (0 = batch_size); with metric_avg "batch" it is the
-    # pooling granularity, so it changes rmse/irmse slightly
+    batch_size: int = 8  # global: over all ranks under torchrun
+    # val-pass batch size (0 = batch_size), global as batch_size; with
+    # metric_avg "batch" it is the pooling granularity, so it changes
+    # rmse/irmse slightly
     eval_batch_size: int = 0
     workers: int = 0  # native-loader threads (0 = 4)
     epochs: int = 15
@@ -170,12 +176,13 @@ class TrainConfig:
     metric_avg: str = "batch"
     eval_splits: bool = False  # --evaluate also reports day/night splits
     tensorboard: bool = False
-    mesh_axis: str = "data"
+    mesh_axis: str = "data"  # the data mesh's axis name
     stall_timeout: float = 3600.0  # exit 86 without progress; 0 disables
     ckpt_every: int = 1
     spatial: int = 1
-    # "default": the CUDA card (raises without one); "cpu": the CPU. A host
-    # knob, not adopted from a run's config.json.
+    # "default": the CUDA card (raises without one), cuda:LOCAL_RANK and
+    # NCCL under torchrun; "cpu": the CPU, gloo under torchrun. A host knob,
+    # not adopted from a run's config.json.
     platform: str = "default"
 
 

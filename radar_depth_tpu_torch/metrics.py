@@ -18,6 +18,8 @@ from typing import Dict
 
 import torch
 
+from radar_depth_tpu_torch.parallel.mesh import all_reduce_sum, is_distributed
+
 METRIC_FIELDS = (
     "irmse", "imae", "mse", "rmse", "mae", "absrel", "lg10",
     "delta1", "delta2", "delta3",
@@ -37,20 +39,47 @@ def _per_sample_mean(x: torch.Tensor, mask: torch.Tensor):
     return mean, count
 
 
-def _pooled_mean_fn(valid: torch.Tensor):
-    """Mean over every valid pixel of the batch."""
-    count = valid.sum()
+def _masked_total(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Sum of ``x`` over every valid pixel of the batch."""
+    return torch.where(valid, x, torch.zeros((), device=x.device)).sum()
 
-    def mean(x):
-        total = torch.where(valid, x, torch.zeros((), device=x.device)).sum()
-        return torch.where(count > 0, total / count.clamp_min(1),
-                           torch.zeros((), device=x.device))
 
-    return mean
+def _pooled_mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    return torch.where(count > 0, total / count.clamp_min(1),
+                       torch.zeros((), device=total.device))
+
+
+def _per_pixel_terms(pred: torch.Tensor, target: torch.Tensor, valid):
+    """{name: per-pixel term} whose valid-pixel means are the metrics
+    (``imse`` is squared under ``irmse``; ``rmse`` comes from ``mse``)."""
+    dtype = pred.dtype
+    safe_pred = pred.clamp_min(1e-6)  # guards log/division; masked anyway
+    safe_target = torch.where(valid, target, torch.ones((), device=pred.device))
+    abs_diff = (pred - target).abs()
+    terms = {"mse": torch.square(pred - target), "mae": abs_diff,
+             "absrel": abs_diff / safe_target,
+             "lg10": (torch.log10(safe_pred) - torch.log10(safe_target)).abs()}
+    max_ratio = torch.maximum(safe_pred / safe_target, safe_target / safe_pred)
+    for i in (1, 2, 3):
+        terms[f"delta{i}"] = (max_ratio < 1.25 ** i).to(dtype)
+    # inverse metrics in 1/km: a 10 m return is 100 km^-1
+    inv_pred = 1.0 / (1e-3 * safe_pred)
+    inv_target = 1.0 / (1e-3 * safe_target)
+    terms["imse"] = torch.square(inv_pred - inv_target)
+    terms["imae"] = (inv_pred - inv_target).abs()
+    return terms
+
+
+def _finish_sqrt(per: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    # sqrt at the granularity of one evaluation: per sample or per batch
+    per["rmse"] = torch.sqrt(per["mse"])
+    per["irmse"] = torch.sqrt(per.pop("imse"))
+    return per
 
 
 def compute_metric_sums(pred: torch.Tensor, target: torch.Tensor,
-                        convention: str = "sample") -> Dict[str, torch.Tensor]:
+                        convention: str = "sample",
+                        mesh=None) -> Dict[str, torch.Tensor]:
     """One batch -> dict of scalar sums and "count" (finish with
     ``finalize_metrics``: metric = sum / count).
 
@@ -58,52 +87,47 @@ def compute_metric_sums(pred: torch.Tensor, target: torch.Tensor,
     valid pixel; count = those samples. "batch": the batch-pooled value times
     n, count = n, where n is the number of samples with a valid pixel (an
     all-invalid padding sample counts for nothing in either).
+
+    ``mesh`` (a ``parallel.mesh.DataMesh`` with a process group): the batch
+    is this rank's rows of the global batch and the sums are the global
+    batch's, the same on every rank. "sample" sums add over ranks; "batch"
+    pools the pixel totals, the valid count and n over ranks before the
+    divide and the square roots.
     """
     dtype = torch.promote_types(pred.dtype, torch.float32)
     pred = pred.to(dtype)
     target = target.to(dtype)
     valid = target > 0
-    safe_pred = pred.clamp_min(1e-6)  # guards log/division; masked anyway
-    safe_target = torch.where(valid, target, torch.ones((), device=pred.device))
+    terms = _per_pixel_terms(pred, target, valid)
 
     if convention == "batch":
-        pooled = _pooled_mean_fn(valid)
-
-        def per_mean(x):
-            return pooled(x), None
-    elif convention == "sample":
-        def per_mean(x):
-            return _per_sample_mean(x, valid)
-    else:
-        raise ValueError(f"unknown metric convention {convention!r}")
-
-    abs_diff = (pred - target).abs()
-    per = {}
-    per["mse"], count = per_mean(torch.square(pred - target))
-    per["mae"], _ = per_mean(abs_diff)
-    per["absrel"], _ = per_mean(abs_diff / safe_target)
-    per["lg10"], _ = per_mean(
-        (torch.log10(safe_pred) - torch.log10(safe_target)).abs())
-    max_ratio = torch.maximum(safe_pred / safe_target, safe_target / safe_pred)
-    for i in (1, 2, 3):
-        per[f"delta{i}"], _ = per_mean((max_ratio < 1.25 ** i).to(dtype))
-    # inverse metrics in 1/km: a 10 m return is 100 km^-1
-    inv_pred = 1.0 / (1e-3 * safe_pred)
-    inv_target = 1.0 / (1e-3 * safe_target)
-    per["imse"], _ = per_mean(torch.square(inv_pred - inv_target))
-    per["imae"], _ = per_mean((inv_pred - inv_target).abs())
-    # sqrt at the granularity of one evaluation: per sample or per batch
-    per["rmse"] = torch.sqrt(per["mse"])
-    per["irmse"] = torch.sqrt(per.pop("imse"))
-
-    if convention == "batch":
+        count = valid.sum()
+        totals = {k: _masked_total(x, valid) for k, x in terms.items()}
         n = valid.flatten(1).any(dim=1).to(dtype).sum()
+        if is_distributed(mesh):
+            names = list(totals)
+            *reduced, count, n = all_reduce_sum(
+                [totals[k] for k in names] + [count, n], mesh,
+                dtype=torch.float64)
+            totals = dict(zip(names, reduced))
+        per = _finish_sqrt({k: _pooled_mean(t, count)
+                            for k, t in totals.items()})
         sums = {name: val * n for name, val in per.items()}
         sums["count"] = n
         return sums
+    if convention != "sample":
+        raise ValueError(f"unknown metric convention {convention!r}")
+    per = {}
+    for k, x in terms.items():
+        per[k], count = _per_sample_mean(x, valid)
+    per = _finish_sqrt(per)
     has_valid = (count > 0).to(dtype)
     sums = {name: (val * has_valid).sum() for name, val in per.items()}
     sums["count"] = has_valid.sum()
+    if is_distributed(mesh):
+        names = list(sums)
+        sums = dict(zip(names, all_reduce_sum([sums[k] for k in names], mesh,
+                                              dtype=torch.float64)))
     return sums
 
 

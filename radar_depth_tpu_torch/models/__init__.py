@@ -31,6 +31,7 @@ from radar_depth_tpu_torch.models.fusion import (
 from radar_depth_tpu_torch.models.layers import (
     BatchNorm,
     HeadConv3,
+    use_mesh,
     use_plain_kernels,
 )
 from radar_depth_tpu_torch.models.resnet import ResNetEncoder
@@ -165,5 +166,6 @@ __all__ = [
     "filter_radar_by_prediction",
     "head_weight_names",
     "init_random",
+    "use_mesh",
     "use_plain_kernels",
 ]

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from radar_depth_tpu_torch.ops import kernels
+from radar_depth_tpu_torch.parallel.mesh import global_moments, is_distributed
 
 
 def _param(shape, dtype, device, channels_last=False) -> nn.Parameter:
@@ -134,7 +135,10 @@ class BatchNorm(nn.Module):
     momentum*running + (1-momentum)*batch`` (torch's own ``F.batch_norm``
     would store the unbiased variance). The variance is taken in two passes:
     flax's one-pass E[x^2] - E[x]^2 is the same quantity but loses digits in
-    float32 where a channel's mean dwarfs its spread.
+    float32 where a channel's mean dwarfs its spread. With a data mesh that
+    has a process group (``use_mesh``) the statistics are those of the
+    global batch (``parallel/mesh.py::global_moments``), as the JAX step
+    computes them over its one graph; eval mode is unchanged.
     """
 
     def __init__(self, channels: int, epsilon: float = 1e-5,
@@ -146,6 +150,7 @@ class BatchNorm(nn.Module):
         # False while a checkpointed stage is recomputed in the backward
         # (``frozen_running_stats``): flax's remat moves the statistics once
         self.update_stats = True
+        self.mesh = None  # parallel.mesh.DataMesh of the train-mode stats
         self.weight = _param((channels,), torch.float32, device)
         self.bias = _param((channels,), torch.float32, device)
         self.register_buffer("running_mean", torch.empty(
@@ -160,6 +165,8 @@ class BatchNorm(nn.Module):
     def _train_forward(self, x, relu, residual):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        if is_distributed(self.mesh):
+            mean, var = global_moments(mean, var, self.mesh)
         if self.update_stats:
             with torch.no_grad():
                 m = self.momentum
@@ -199,6 +206,15 @@ def use_plain_kernels(model: nn.Module, plain: bool = True) -> nn.Module:
     for m in model.modules():
         if isinstance(m, BatchNorm):
             m.plain = plain
+    return model
+
+
+def use_mesh(model: nn.Module, mesh) -> nn.Module:
+    """Normalize every train-mode BN of ``model`` with the statistics of
+    ``mesh``'s global batch (None: the rank's own batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
     return model
 
 

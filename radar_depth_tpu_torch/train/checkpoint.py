@@ -14,6 +14,11 @@ The state is copied to the host before ``save`` returns (the train step
 updates the model in place); the write to disk runs in a background thread
 and overlaps the next epoch, as orbax's async save does. Readers and
 ``close`` wait for it.
+
+Over a data mesh (``parallel/mesh.py``) rank 0 alone writes: every rank
+calls ``save`` (the replicas are bit-equal), the others skip the write, and
+all meet at a barrier; ``wait_all`` waits for rank 0's write and then meets
+the others at a barrier, so no rank goes on to read before it is on disk.
 """
 
 from __future__ import annotations
@@ -79,15 +84,18 @@ def load_payload(step_dir: str) -> dict:
 
 class CheckpointManager:
     def __init__(self, output_dir: str, max_to_keep: int = 3,
-                 sweep_stale: bool = True):
+                 sweep_stale: bool = True, mesh=None):
         """``sweep_stale`` must be False for read-only openers (--evaluate,
         a --resume from another run): a live writer's save in flight has the
         same tmp naming. Writers hold the run lock (``utils/runlock.py``), so
-        their sweep sees only the leftovers of dead predecessors."""
+        their sweep sees only the leftovers of dead predecessors. ``mesh``:
+        only its rank 0 writes or sweeps."""
         self.dir = os.path.abspath(os.path.join(output_dir, "checkpoints"))
         self.max_to_keep = max_to_keep
-        self._writer = sweep_stale
-        if sweep_stale:
+        self.mesh = mesh
+        self._main = mesh is None or mesh.is_main
+        self._read_only = not sweep_stale
+        if sweep_stale and self._main:
             os.makedirs(self.dir, exist_ok=True)
             for path in _sweep_stale_tmp(self.dir):
                 print(f"removed stale interrupted-save dir {path}")
@@ -104,9 +112,16 @@ class CheckpointManager:
              wait: bool = False) -> None:
         """Snapshot ``state`` to the host now; write it in the background
         (``wait=True``: before returning). A save in flight finishes
-        first."""
-        if not self._writer:
+        first. Over a mesh, ranks other than 0 write nothing; all meet at a
+        barrier after the snapshot."""
+        if self._read_only:
             raise RuntimeError(f"{self.dir} was opened read-only")
+        if self._main:
+            self._save(epoch, state, metrics, wait)
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _save(self, epoch, state, metrics, wait):
         self.wait_until_finished()
         rmse = float(metrics.get("rmse", math.inf))
         t0 = time.perf_counter()
@@ -150,6 +165,12 @@ class CheckpointManager:
                 shutil.rmtree(os.path.join(self.dir, str(step)),
                               ignore_errors=True)
                 del self._metrics[step]
+
+    def wait_all(self) -> None:
+        """Rank 0's write finished, then a barrier of every rank."""
+        self.wait_until_finished()
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def wait_until_finished(self) -> None:
         if self._thread is not None:

@@ -1,6 +1,22 @@
 """Epoch loops of the port (``radar_depth_tpu/train/loop.py``): the Trainer
 builds the model, optimizer and data once and runs epochs of train steps,
-validation, CSV rows, best tracking and checkpoints on one device.
+validation, CSV rows, best tracking and checkpoints, on one device or, under
+``torchrun``, data-parallel over the ranks' devices.
+
+Data parallelism (``parallel/mesh.py``): the mesh comes from the
+environment (one rank per card, ``cuda:LOCAL_RANK``, NCCL; gloo with
+``--platform cpu``); without ``RANK``/``WORLD_SIZE`` there is no process
+group and the run is the single-process one. ``batch_size`` and
+``eval_batch_size`` are global and must split evenly over the ranks. Every
+rank builds the same model and broadcasts rank 0's weights after any
+loading; every rank reads the global batch from its own loader and keeps
+its rows (the native loader keys its host augmentation by sample, so the
+rows are what a single process draws); a ragged last val batch is padded
+(``pad_batch_to``) before the split. The steps make BN statistics, losses
+and metrics global and sum the gradients (``train/step.py``), so the
+replicas stay bit-equal, which the end of a run checks. Rank 0 alone
+writes the run directory (lock, config.json, CSVs, best.txt, checkpoints,
+TensorBoard, panels) and prints.
 
 Timing fields keep the reference's Result.data_time / gpu_time: data_time is
 the host's batch assembly per step, gpu_time the device time per step, read
@@ -36,7 +52,6 @@ from radar_depth_tpu_torch.config import (
     serve_config,
 )
 from radar_depth_tpu_torch.data.synthetic import SyntheticNuScenes
-from radar_depth_tpu_torch.device import resolve_device
 from radar_depth_tpu_torch.metrics import AverageMeter, finalize_metrics
 from radar_depth_tpu_torch.models import create_model
 from radar_depth_tpu_torch.models.layers import (
@@ -44,6 +59,15 @@ from radar_depth_tpu_torch.models.layers import (
     Conv2d,
     ConvTranspose,
     UnpoolConv,
+)
+from radar_depth_tpu_torch.parallel.mesh import (
+    assert_replicated,
+    broadcast_module,
+    check_batch_sizes,
+    destroy_mesh,
+    local_rows,
+    make_mesh,
+    pad_batch_to,
 )
 from radar_depth_tpu_torch.train import checkpoint as ckpt_lib
 from radar_depth_tpu_torch.train.state import create_train_state
@@ -175,29 +199,30 @@ def _add(acc, new):
 
 
 class Trainer:
-    """Builds the model, optimizer and data once, runs epochs (the
+    """Builds the model, optimizer, mesh and data once, runs epochs (the
     reference's main.py::main), on the card unless ``cfg.platform`` is
-    "cpu"."""
+    "cpu"; data-parallel under ``torchrun`` (module docstring)."""
 
     def __init__(self, cfg: TrainConfig):
         require_ported(cfg)
         self.cfg = cfg
-        self.device = resolve_device("cpu" if cfg.platform == "cpu" else None)
+        self.mesh = make_mesh("cpu" if cfg.platform == "cpu" else "default",
+                              axis=cfg.mesh_axis)
+        self.device = self.mesh.device
+        self._main = self.mesh.is_main
+        check_batch_sizes(self.mesh, batch_size=cfg.batch_size,
+                          eval_batch_size=cfg.eval_batch_size)
         if self.device.type == "cuda":
             # deterministic cuDNN convolutions: with the matmul resize
             # (models/layers.py) a train step on the card gives the same
             # bits every run, so --resume reproduces the straight run
             torch.backends.cudnn.deterministic = True
-            if torch.cuda.device_count() > 1:
-                print(f"note: {torch.cuda.device_count()} CUDA devices "
-                      f"visible; the port trains on {self.device} only (data "
-                      "parallelism over cards is ROADMAP Queue A item 4)")
         if (cfg.metric_avg == "batch"
                 and cfg.eval_batch_size not in (0, cfg.batch_size)):
-            print("note: --metric-avg batch pools metrics per loop batch "
-                  f"(reference Result.evaluate), so --eval-batch-size "
-                  f"{cfg.eval_batch_size} != {cfg.batch_size} shifts "
-                  "rmse/irmse vs reference-batch-size numbers")
+            self.say("note: --metric-avg batch pools metrics per loop batch "
+                     f"(reference Result.evaluate), so --eval-batch-size "
+                     f"{cfg.eval_batch_size} != {cfg.batch_size} shifts "
+                     "rmse/irmse vs reference-batch-size numbers")
         self.model, self.arch_spec = build_model(cfg, self.device)
         if cfg.optim.grad_accum < 1:
             raise ValueError(f"grad_accum={cfg.optim.grad_accum} must be >= 1")
@@ -224,8 +249,8 @@ class Trainer:
         if cfg.data.dataset == "packed" and self.reader != "native":
             from radar_depth_tpu_torch.data.packed import native_error
 
-            print(f"note: packed data through the numpy reader, "
-                  f"augmentation in the step ({native_error()})")
+            self.say(f"note: packed data through the numpy reader, "
+                     f"augmentation in the step ({native_error()})")
 
         init_model(self.model, cfg.seed)
         if cfg.model.pretrained:
@@ -234,25 +259,30 @@ class Trainer:
                                         steps_per_epoch)
         self._train_step = make_train_step(
             self.model, self.arch_spec, cfg,
-            host_augmented=self.host_augment)
-        self._eval_step = make_eval_step(self.model, self.arch_spec, cfg)
+            host_augmented=self.host_augment, mesh=self.mesh)
+        self._eval_step = make_eval_step(self.model, self.arch_spec, cfg,
+                                         mesh=self.mesh)
         self._predict = make_predict_fn(self.model, self.arch_spec, cfg)
         self._loaders: Dict[int, object] = {}
 
-        os.makedirs(cfg.output_dir, exist_ok=True)
         self._run_lock = None
-        if not cfg.evaluate:
-            # exclusive writer; --evaluate is read-only and takes no lock
-            self._run_lock = acquire_run_lock(cfg.output_dir)
-            save_config(cfg, os.path.join(cfg.output_dir, "config.json"))
-        self.train_log = EpochCSVLogger(os.path.join(cfg.output_dir,
-                                                     "train.csv"))
-        self.val_log = EpochCSVLogger(os.path.join(cfg.output_dir, "test.csv"))
+        self.train_log = self.val_log = None
+        if self._main:
+            os.makedirs(cfg.output_dir, exist_ok=True)
+            if not cfg.evaluate:
+                # exclusive writer; --evaluate is read-only, takes no lock
+                self._run_lock = acquire_run_lock(cfg.output_dir)
+                save_config(cfg, os.path.join(cfg.output_dir, "config.json"))
+            self.train_log = EpochCSVLogger(os.path.join(cfg.output_dir,
+                                                         "train.csv"))
+            self.val_log = EpochCSVLogger(os.path.join(cfg.output_dir,
+                                                       "test.csv"))
         # read-only openers never sweep a live writer's save in flight
         self.ckpt = ckpt_lib.CheckpointManager(cfg.output_dir,
-                                               sweep_stale=not cfg.evaluate)
+                                               sweep_stale=not cfg.evaluate,
+                                               mesh=self.mesh)
         self.tboard = None
-        if cfg.tensorboard:
+        if cfg.tensorboard and self._main:
             from radar_depth_tpu_torch.utils.tboard import TensorBoardLogger
 
             self.tboard = TensorBoardLogger(os.path.join(cfg.output_dir, "tb"))
@@ -261,6 +291,11 @@ class Trainer:
         self.history: list = []  # per epoch: walls, metrics, checkpoint
         self.saves: list = []  # per checkpoint: times and bytes
         self._watchdog = None
+
+    def say(self, *args) -> None:
+        """Print on rank 0 only."""
+        if self._main:
+            print(*args)
 
     def _load_pretrained(self, path: str):
         """--pretrained FILE: a torchvision ImageNet ResNet state_dict (a
@@ -277,7 +312,7 @@ class Trainer:
         self.pretrained_report = report
         for subtree, loaded, skipped in report:
             note = f"; skipped {len(skipped)}: {skipped[:3]}" if skipped else ""
-            print(f"pretrained: {subtree}: loaded {loaded} tensors{note}")
+            self.say(f"pretrained: {subtree}: loaded {loaded} tensors{note}")
 
     # ------------------------------------------------------------- resume
 
@@ -289,8 +324,8 @@ class Trainer:
                 self.cfg.resume, sweep_stale=False).restore(self.state)
             self.start_epoch = epoch + 1
             self.best_rmse = best_rmse
-            print(f"resumed from {self.cfg.resume} at epoch {epoch} "
-                  f"(best rmse {best_rmse:.4f})")
+            self.say(f"resumed from {self.cfg.resume} at epoch {epoch} "
+                     f"(best rmse {best_rmse:.4f})")
 
     def _load_model_from(self, path: str) -> tuple:
         step_dir = ckpt_lib.resolve_checkpoint(path)
@@ -320,7 +355,7 @@ class Trainer:
                 new[f"{stage}.{k}"] = widen_to_template(sd[f"{stage}.{k}"], v,
                                                         k)
         self.model.load_state_dict(new, strict=False)
-        print(f"initialized stage1+stage2 from {step_dir}")
+        self.say(f"initialized stage1+stage2 from {step_dir}")
 
     def maybe_warm_start(self):
         """--init-from: parameters and BN statistics of a same-arch run's
@@ -333,10 +368,11 @@ class Trainer:
         except RuntimeError as e:
             raise ValueError(f"--init-from {step_dir}: checkpoint does not "
                              f"match arch {self.cfg.model.arch}") from e
-        print(f"warm-started params from {step_dir}")
+        self.say(f"warm-started params from {step_dir}")
 
     def load_for_evaluate(self):
         ckpt_lib.restore_for_evaluate(self.cfg.evaluate, self.state)
+        broadcast_module(self.model, self.mesh)
 
     # ------------------------------------------------------------- epochs
 
@@ -351,10 +387,11 @@ class Trainer:
             augment=cfg.augment if self.host_augment else None)
 
     def _train_batches(self, epoch: int):
-        """The epoch's batches: from the native loader (augmented in its
-        threads when ``_host_augment``), else gathered in numpy order. The
-        next epoch's loader starts when this one is drained, so it
-        prefetches during validation."""
+        """The epoch's global batches: from the native loader (augmented in
+        its threads when ``_host_augment``), else gathered in numpy order.
+        The next epoch's loader starts when this one is drained, so it
+        prefetches during validation. Every rank reads the global batch
+        and keeps its rows (``train_epoch``)."""
         cfg = self.cfg
         if self.reader != "native":
             yield from iterate_batches(self.train_ds, cfg.batch_size, True,
@@ -412,7 +449,8 @@ class Trainer:
         window_t0, window_n, window_data = t0, 0, 0.0
         for batch in self._train_groups(epoch):
             self._beat()
-            batch = self._upload(batch)
+            batch = self._upload(local_rows(batch, self.mesh,
+                                            accum=self._accum > 1))
             t1 = time.perf_counter()
             acc = _add(acc, self._train_step(self.state, batch,
                                              generator=gen))
@@ -427,9 +465,9 @@ class Trainer:
                               n=steps_in_window)
                 loss = m.pop("loss") / nsteps
                 fm = finalize_metrics(m)
-                print(f"epoch {epoch} step {nsteps}: loss={loss:.4f} "
-                      f"rmse={fm['rmse']:.3f} mae={fm['mae']:.3f} "
-                      f"{wall / steps_in_window * 1e3:.0f}ms/step")
+                self.say(f"epoch {epoch} step {nsteps}: loss={loss:.4f} "
+                         f"rmse={fm['rmse']:.3f} mae={fm['mae']:.3f} "
+                         f"{wall / steps_in_window * 1e3:.0f}ms/step")
                 window_t0, window_n, window_data = (time.perf_counter(),
                                                     nsteps, 0.0)
             t0 = time.perf_counter()
@@ -450,8 +488,9 @@ class Trainer:
                  indices=None) -> Dict[str, float]:
         """The eval pass (restricted to ``indices`` for a split). The panel
         takes the first sample of every val_viz_every-th batch, up to 8
-        rows, in comparison_epoch{epoch}.png; its forwards run after the
-        timing window."""
+        rows, in comparison_epoch{epoch}.png (rank 0); its forwards run
+        after the timing window. Over several ranks a ragged last batch is
+        padded to the eval batch size before each rank takes its rows."""
         cfg = self.cfg
         acc = None
         data_t = AverageMeter()
@@ -463,8 +502,11 @@ class Trainer:
                                                   drop_last=False,
                                                   indices=indices)):
             self._beat()
-            if viz and i % cfg.val_viz_every == 0 and len(viz_batches) < 8:
+            if (viz and self._main and i % cfg.val_viz_every == 0
+                    and len(viz_batches) < 8):
                 viz_batches.append({k: v[:1] for k, v in batch.items()})
+            if self.mesh.world > 1:
+                batch = local_rows(pad_batch_to(batch, ebs)[0], self.mesh)
             batch = self._upload(batch)
             t1 = time.perf_counter()
             acc = _add(acc, self._eval_step(batch))
@@ -506,7 +548,10 @@ class Trainer:
 
     def write_split_csvs(self, splits: Dict[str, Dict[str, float]],
                          epoch: int = 0) -> None:
-        """One test_<tag>.csv row per split, in test.csv's schema."""
+        """One test_<tag>.csv row per split, in test.csv's schema (rank
+        0)."""
+        if not self._main:
+            return
         for tag, m in splits.items():
             EpochCSVLogger(os.path.join(
                 self.cfg.output_dir, f"test_{tag}.csv")).append(epoch, m)
@@ -516,11 +561,18 @@ class Trainer:
         self.maybe_init_from_stage1()
         self.maybe_warm_start()
         self.maybe_resume()
+        broadcast_module(self.model, self.mesh)
         try:
             with StallWatchdog(cfg.stall_timeout,
                                context=f"training {cfg.output_dir}") as wd:
                 self._watchdog = wd
                 self._epochs()
+                # rank 0's last checkpoint is on disk before any rank ends
+                self.ckpt.wait_all()
+                assert_replicated(self.model, self.mesh)
+                if self.mesh.world > 1:
+                    self.say(f"replicas bit-equal on {self.mesh.world} "
+                             f"ranks after {self.state.step} steps")
         finally:
             self._watchdog = None
             self.close()
@@ -530,30 +582,33 @@ class Trainer:
         for epoch in range(self.start_epoch, cfg.epochs):
             w0 = time.perf_counter()
             train_m = self.train_epoch(epoch)
-            self.train_log.append(epoch, train_m)
+            if self._main:
+                self.train_log.append(epoch, train_m)
             w1 = time.perf_counter()
             val_m = self.validate(epoch)
-            self.val_log.append(epoch, val_m)
+            if self._main:
+                self.val_log.append(epoch, val_m)
             w2 = time.perf_counter()
             if self.tboard is not None:
                 self.tboard.log("train", epoch, train_m)
                 self.tboard.log("val", epoch, val_m)
-            print(f"epoch {epoch}: val rmse={val_m['rmse']:.4f} "
-                  f"mae={val_m['mae']:.4f} d1={val_m['delta1']:.4f}")
+            self.say(f"epoch {epoch}: val rmse={val_m['rmse']:.4f} "
+                     f"mae={val_m['mae']:.4f} d1={val_m['delta1']:.4f}")
             # best.txt before the checkpoint: a run killed mid-save never
             # leaves best.txt behind a finished epoch
             improved = val_m["rmse"] < self.best_rmse
             if improved:
                 self.best_rmse = val_m["rmse"]
-                write_best_txt(os.path.join(cfg.output_dir, "best.txt"),
-                               epoch, val_m)
+                if self._main:
+                    write_best_txt(os.path.join(cfg.output_dir, "best.txt"),
+                                   epoch, val_m)
             saved = should_checkpoint(epoch, improved, cfg.ckpt_every,
                                       cfg.epochs)
             if saved:
                 self.ckpt.save(epoch, self.state, val_m)
             w3 = time.perf_counter()
-            print(f"epoch {epoch} walls: train={w1 - w0:.1f}s "
-                  f"val={w2 - w1:.1f}s ckpt={w3 - w2:.1f}s")
+            self.say(f"epoch {epoch} walls: train={w1 - w0:.1f}s "
+                     f"val={w2 - w1:.1f}s ckpt={w3 - w2:.1f}s")
             self.history.append({
                 "epoch": epoch, "train": train_m, "val": val_m,
                 "walls": {"train": w1 - w0, "val": w2 - w1,
@@ -566,7 +621,8 @@ class Trainer:
 
     def close(self):
         """Release the loaders' threads, wait for the checkpoint write,
-        close the logs and the run lock. Idempotent."""
+        close the logs and the run lock, destroy the process group that the
+        Trainer made. Idempotent."""
         for loader in self._loaders.values():
             loader.close()
         self._loaders.clear()
@@ -580,3 +636,5 @@ class Trainer:
         if getattr(self, "_run_lock", None) is not None:
             release_run_lock(self._run_lock)
             self._run_lock = None
+        if getattr(self, "mesh", None) is not None:
+            destroy_mesh(self.mesh)

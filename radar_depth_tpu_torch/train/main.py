@@ -5,6 +5,18 @@ main.py``), on the CUDA card unless ``--platform cpu``:
   resume:    ... --resume RUN --epochs N
   evaluate:  ... --evaluate RUN [--eval-splits]
 
+Data-parallel over N cards of one host, one process per card (NCCL), with
+the same flags; ``-b`` and ``--eval-batch-size`` are global and must be
+multiples of N:
+
+  python -m torch.distributed.run --standalone --nproc-per-node N \
+      -m radar_depth_tpu_torch.train.main ...
+
+``--platform cpu`` runs the ranks on the CPU over gloo. As the JAX CLI,
+which takes every visible device, there is no flag for it: ``torchrun``'s
+``RANK``/``WORLD_SIZE`` make the mesh (``parallel/mesh.py::make_mesh``),
+and rank 0 alone writes the run directory and prints.
+
 ``run(argv)`` is the same flow and returns what it measured, for callers in
 Python: {"cfg", "reader", "host_augment", and "validation" + "splits" after
 --evaluate, or "history" (per epoch: metrics, walls) + "saves" after a
@@ -25,24 +37,29 @@ def run(argv=None) -> Dict:
     trainer = Trainer(cfg)
     out = {"cfg": cfg, "reader": trainer.reader,
            "host_augment": trainer.host_augment}
-    print(f"train data: {trainer.reader} reader, augmentation "
-          f"{'in the loader threads' if trainer.host_augment else 'in the step'}"
-          f"; device {trainer.device}")
+    trainer.say(
+        f"train data: {trainer.reader} reader, augmentation "
+        f"{'in the loader threads' if trainer.host_augment else 'in the step'}"
+        f"; device {trainer.device}"
+        + (f"; {trainer.mesh.world} ranks ({trainer.mesh.backend})"
+           if trainer.mesh.group is not None else ""))
     if cfg.evaluate:
         try:
             trainer.load_for_evaluate()
             metrics = trainer.validate(epoch=0)
-            print("validation:", {k: round(v, 4) for k, v in metrics.items()})
+            trainer.say("validation:",
+                        {k: round(v, 4) for k, v in metrics.items()})
             splits = {}
             if cfg.eval_splits:
                 splits = trainer.validate_splits(epoch=0)
                 if not splits:
-                    print("--eval-splits: val dataset carries no (or only "
-                          "one) split tag — packed shards need a tags.json "
-                          "sidecar (write_shard(tags=...)); nothing to report")
+                    trainer.say("--eval-splits: val dataset carries no (or "
+                                "only one) split tag — packed shards need a "
+                                "tags.json sidecar (write_shard(tags=...)); "
+                                "nothing to report")
                 for tag, m in splits.items():
-                    print(f"validation[{tag}]:",
-                          {k: round(v, 4) for k, v in m.items()})
+                    trainer.say(f"validation[{tag}]:",
+                                {k: round(v, 4) for k, v in m.items()})
                 trainer.write_split_csvs(splits)
         finally:
             trainer.close()

@@ -12,6 +12,18 @@ threads and the train step takes the eval preprocessing.
 
 The model is the state: a step updates its parameters and BN running
 statistics in place, where the JAX step returns new ones.
+
+``mesh`` (``parallel.mesh.DataMesh``): with a process group, each rank
+passes its own rows of the global batch (``parallel.mesh.local_rows``) and
+the step computes what the JAX step computes over the global batch on its
+one graph: augmentation parameters and sparsifier draws are drawn for the
+global batch from the generator, which every rank seeds alike, and each
+rank keeps its rows; train-mode BN normalizes with global statistics; the
+masked losses divide by the global valid count; each rank differentiates
+its share of the loss and one SUM all-reduce per optimizer step adds the
+gradients over ranks. The returned loss and sums are the global batch's,
+the same on every rank. Without a group the steps are the single-process
+code, with no collective.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ from radar_depth_tpu_torch.metrics import compute_metric_sums
 from radar_depth_tpu_torch.models import (
     ArchSpec,
     blend_by_brightness,
+    use_mesh,
     use_plain_kernels,
 )
 from radar_depth_tpu_torch.objectives import (
@@ -32,11 +45,17 @@ from radar_depth_tpu_torch.objectives import (
     multistage_loss,
     multistage_uncertainty_loss,
 )
+from radar_depth_tpu_torch.ops.augment import sample_affine_params
 from radar_depth_tpu_torch.ops.preprocess import (
     PreprocessConfig,
     pack_model_inputs,
     prepare_eval_batch,
     prepare_train_batch,
+)
+from radar_depth_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    is_distributed,
+    local_rows,
 )
 from radar_depth_tpu_torch.train.state import TrainState
 
@@ -57,31 +76,54 @@ def _device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def _loss_and_pred(out, target, cfg: TrainConfig, spec: ArchSpec, rgb=None):
+def _loss_and_pred(out, target, cfg: TrainConfig, spec: ArchSpec, rgb=None,
+                   mesh=None):
     """``rgb`` (eval only) turns on the ``blend_tau`` output policy, so the
     metrics score the served output; the loss is always the multistage sum
     over both heads, weighted by the learned log-variances when the model
-    returns them (the uncertainty archs)."""
+    returns them (the uncertainty archs). With ``mesh`` the loss is this
+    rank's share of the global batch's."""
     if spec.multistage:
         if len(out) == 3:  # (coarse, refined, stage_log_var)
             loss = multistage_uncertainty_loss(out[:2], out[2], target,
-                                               cfg.optim.criterion)
+                                               cfg.optim.criterion, mesh)
         else:
             loss = multistage_loss(out, target, cfg.optim.criterion,
-                                   cfg.optim.stage_weights)
+                                   cfg.optim.stage_weights, mesh)
         pred = out[1]
         if rgb is not None and cfg.model.blend_tau > 0:
             pred = blend_by_brightness(out[0], out[1], rgb,
                                        cfg.model.blend_tau)
     else:
-        loss = get_loss(cfg.optim.criterion)(out, target)
+        loss = get_loss(cfg.optim.criterion)(out, target, mesh)
         pred = out
     return loss, pred
 
 
+def _global_draws(batch: Dict, pre: PreprocessConfig, mesh, device,
+                  aug_params, generator, sparse_u, host_augmented: bool):
+    """(aug_params, sparse_u) of this rank's rows: given ones are the
+    global batch's; missing ones are drawn for the global batch from
+    ``generator``, as the single-process step draws them, so N ranks draw
+    what one rank draws. Returns what the preprocessing takes."""
+    n = next(iter(batch.values())).shape[0] * mesh.world
+    if pre.sparsifier != "none":
+        if sparse_u is None and generator is not None:
+            # ops/sparsify.py::draw_uniform over the global target's shape
+            sparse_u = torch.rand((n, pre.spec.height, pre.spec.width),
+                                  generator=generator, device=device,
+                                  dtype=torch.float32)
+        return aug_params, local_rows(sparse_u, mesh)
+    if host_augmented or not pre.augment.enabled:
+        return aug_params, sparse_u
+    if aug_params is None and generator is not None:
+        aug_params = sample_affine_params(generator, pre.augment, n)
+    return local_rows(aug_params, mesh), sparse_u
+
+
 def make_micro_grad_fn(model: torch.nn.Module, spec: ArchSpec,
                        cfg: TrainConfig, plain: bool = False,
-                       host_augmented: bool = False) -> Callable:
+                       host_augmented: bool = False, mesh=None) -> Callable:
     """One micro-batch of the train step without the optimizer update:
     ``micro_grads(batch, aug_params=None, generator=None, sparse_u=None) ->
     (grads, sums)`` with ``grads`` {parameter name: gradient}. The forward
@@ -96,14 +138,26 @@ def make_micro_grad_fn(model: torch.nn.Module, spec: ArchSpec,
     so the step runs the eval preprocessing (the radar through the z-buffer,
     the GT the stored ``lidar_depth`` map) and draws nothing. ``plain=True``
     runs the z-buffer's plain version (the reference on the card); kernel B
-    does not run in train mode."""
+    does not run in train mode.
+
+    ``mesh`` with a process group (module docstring): ``batch`` is this
+    rank's rows, ``aug_params`` and ``sparse_u`` if given are the global
+    batch's, and ``grads`` are this rank's share, not yet summed over
+    ranks; the sums are global. Each call points the model's BN layers at
+    ``mesh`` (``models.use_mesh``; None without a group), so steps built
+    on one model with different meshes do not disturb each other."""
     pre = make_preprocess_config(cfg)
     names, params = zip(*model.named_parameters())
+    mesh = mesh if is_distributed(mesh) else None
 
     def micro_grads(batch: Dict, aug_params=None,
                     generator: torch.Generator | None = None,
                     sparse_u=None):
-        model.train()
+        use_mesh(model.train(), mesh)
+        if mesh is not None:
+            aug_params, sparse_u = _global_draws(
+                batch, pre, mesh, _device(model), aug_params, generator,
+                sparse_u, host_augmented)
         if host_augmented:
             prepared = prepare_eval_batch(batch, pre, _device(model), plain,
                                           sparse_u, generator)
@@ -113,11 +167,11 @@ def make_micro_grad_fn(model: torch.nn.Module, spec: ArchSpec,
         target = prepared["target"]
         out = model(*pack_model_inputs(prepared, spec.input_kind,
                                        cfg.model.modality))
-        loss, pred = _loss_and_pred(out, target, cfg, spec)
+        loss, pred = _loss_and_pred(out, target, cfg, spec, mesh=mesh)
         grads = torch.autograd.grad(loss, params)
         with torch.no_grad():
-            sums = compute_metric_sums(pred, target, cfg.metric_avg)
-        sums["loss"] = loss.detach().float()
+            sums = compute_metric_sums(pred, target, cfg.metric_avg, mesh)
+        sums["loss"], = all_reduce_sum([loss.detach().float()], mesh)
         return dict(zip(names, grads)), sums
 
     return micro_grads
@@ -125,7 +179,7 @@ def make_micro_grad_fn(model: torch.nn.Module, spec: ArchSpec,
 
 def make_train_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
                     plain: bool = False,
-                    host_augmented: bool = False) -> Callable:
+                    host_augmented: bool = False, mesh=None) -> Callable:
     """``train_step(state, batch, generator=None, aug_params=None,
     sparse_u=None) -> sums`` for ``state.model is model``; advances
     ``state`` in place. ``host_augmented``: see ``make_micro_grad_fn``.
@@ -135,9 +189,21 @@ def make_train_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
     entry per micro-batch: the micro-batches run in order, BN statistics carried from one
     to the next, their gradients averaged into one update; the metric sums
     add up and the loss is divided by N, so its scale matches the plain
-    step."""
-    micro_grads = make_micro_grad_fn(model, spec, cfg, plain, host_augmented)
+    step.
+
+    ``mesh`` with a process group (module docstring): ``batch`` holds this
+    rank's rows (dim 1 of the stacks), ``aug_params`` and ``sparse_u`` if
+    given the global batch's; the gradients are summed over ranks in one
+    flat all-reduce after the micro-batches, before the division by N."""
+    mesh = mesh if is_distributed(mesh) else None
+    micro_grads = make_micro_grad_fn(model, spec, cfg, plain, host_augmented,
+                                     mesh)
     accum = max(1, cfg.optim.grad_accum)
+
+    def reduce_grads(grads: Dict[str, torch.Tensor]):
+        if mesh is None:
+            return grads
+        return dict(zip(grads, all_reduce_sum(list(grads.values()), mesh)))
 
     def apply_update(state: TrainState, grads: Dict[str, torch.Tensor]):
         for group in state.optimizer.param_groups:
@@ -156,7 +222,7 @@ def make_train_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
             raise ValueError("state.model is not the model of this step")
         if accum == 1:
             grads, sums = micro_grads(batch, aug_params, generator, sparse_u)
-            apply_update(state, grads)
+            apply_update(state, reduce_grads(grads))
             return sums
         grads, sums = None, None
         for i in range(accum):
@@ -170,30 +236,43 @@ def make_train_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
                 grads = {k: grads[k] + g[k] for k in grads}
                 sums = {k: sums[k] + s[k] for k in sums}
         sums["loss"] = sums["loss"] / accum
-        apply_update(state, {k: g / accum for k, g in grads.items()})
+        apply_update(state, {k: g / accum
+                             for k, g in reduce_grads(grads).items()})
         return sums
 
     return train_step
 
 
 def make_eval_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
-                   plain: bool = False) -> Callable:
+                   plain: bool = False, mesh=None) -> Callable:
     """``eval_step(batch) -> sums``: the eval preprocessing (kernel C or A
     z-buffer) and the eval-mode forward (kernel B), the multistage loss and
     the metric sums of the served output (``blend_tau``). ``plain=True``
-    runs every kernel's plain version."""
+    runs every kernel's plain version. ``mesh`` with a process group:
+    ``batch`` is this rank's rows of a global batch (a ragged last one
+    padded with ``parallel.mesh.pad_batch_to`` first) and the sums are the
+    global batch's; a sparsifier's draws are those of the global batch."""
     pre = make_preprocess_config(cfg)
+    mesh = mesh if is_distributed(mesh) else None
 
     @torch.no_grad()
     def eval_step(batch: Dict) -> Dict:
         use_plain_kernels(model.eval(), plain)
-        prepared = prepare_eval_batch(batch, pre, _device(model), plain)
+        dev = _device(model)
+        sparse_u = None
+        if mesh is not None and pre.sparsifier != "none":
+            # the fixed draws of a single-process eval over the global batch
+            _, sparse_u = _global_draws(
+                batch, pre, mesh, dev, None,
+                torch.Generator(device=dev).manual_seed(0), None, False)
+        prepared = prepare_eval_batch(batch, pre, dev, plain, sparse_u)
         out = model(*pack_model_inputs(prepared, spec.input_kind,
                                        cfg.model.modality))
         loss, pred = _loss_and_pred(out, prepared["target"], cfg, spec,
-                                    rgb=prepared["rgb"])
-        sums = compute_metric_sums(pred, prepared["target"], cfg.metric_avg)
-        sums["loss"] = loss.float()
+                                    rgb=prepared["rgb"], mesh=mesh)
+        sums = compute_metric_sums(pred, prepared["target"], cfg.metric_avg,
+                                   mesh)
+        sums["loss"], = all_reduce_sum([loss.float()], mesh)
         return sums
 
     return eval_step
