@@ -108,6 +108,21 @@ Phases, each printing one JSON line:
                  not a scaling number); (c) torchrun --nproc-per-node 1 of
                  train.main (NCCL) for 1 epoch on the harness shards, its
                  test.csv row against the harness's straight run's epoch 0
+  spatial        spatial partitioning (parallel/spatial.py), the flagship at
+                 full width with image height sharded over two gloo
+                 processes on card 0 (chip_smoke.py --spatial-worker DIR,
+                 started by the phase; a correctness check, not a scaling
+                 number): (a) a float32 Predictor forward of B=8 (TF32 off)
+                 against the single-process plain-kernel Predictor, rel RMSE
+                 <= 1e-5, both ranks' maps bit-equal, per rank kernel C 1 and
+                 kernel B 84; (b) the micro-step gradients summed over ranks
+                 against the single-process ones, every parameter's norm
+                 ratio in 0.98-1.02, and two float32 train steps under phase
+                 train's gates (the second from the plain step's
+                 parameters), the ranks' parameters bit-equal after each;
+                 (c) halo exchanges per forward and per train step, bytes per
+                 exchange, host ms of the exchanges, bf16 B=8 step img/s and
+                 per-rank peak memory beside the plain step's
 Then the script's wall time, the kernels' summary line (kernel B's with its
 launches per forward for each configuration), nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line;
@@ -2346,6 +2361,276 @@ def phase_data_parallel(torch, np, dev, batch, tmp):
     return out
 
 
+# ------------------------------------------------- spatial partitioning
+
+SPATIAL = 2  # ranks of the space axis in phase spatial (data axis: 1)
+SPATIAL_BF16_STEPS = 4  # img/s is the median after the first
+GRAD_NORM_RATIO = (0.98, 1.02)  # per parameter, as the JAX test_spatial.py
+
+
+def spatial_worker(root) -> int:
+    """One rank of phase spatial: two processes on card 0 over gloo, a
+    (1, 2) mesh, image height sharded over both. (a) a float32 Predictor
+    forward of the B=8 batch; (b) the micro-step gradients (summed over
+    ranks) and two float32 train steps, the second from the plain step's
+    parameters after its first (the float32 gradients are ill-conditioned,
+    so each step is compared from the same start, as
+    tests/test_torch_train.py does); (c) bf16 train steps, timed, with this
+    process's peak memory. Prints one JSON line; each rank writes its
+    prediction to ``root``, rank 0 its gradients and states."""
+    import numpy as np
+    import torch
+
+    from radar_depth_tpu_torch.config import serve_config
+    from radar_depth_tpu_torch.inference import Predictor
+    from radar_depth_tpu_torch.parallel import mesh as pm
+    from radar_depth_tpu_torch.parallel import spatial as sp
+    from radar_depth_tpu_torch.train.step import (
+        make_micro_grad_fn,
+        make_train_step,
+    )
+
+    mesh = pm.make_spatial_mesh(SPATIAL, backend="gloo")  # dp_env
+    dev = mesh.device
+    sd = torch.load(os.path.join(root, "weights.pt"), map_location="cpu",
+                    weights_only=True)
+    b8 = dict(np.load(os.path.join(root, "batch.npz")))
+    out = {"rank": mesh.rank, "axes": list(mesh.axis_names),
+           "shape": list(mesh.shape), "backend": mesh.backend}
+
+    def counted():
+        torch.cuda.synchronize()
+        reset_launches()
+        pm.COLLECTIVES.clear()
+        sp.HALO.clear()
+
+    def counts():
+        return {"launches": read_launches(),
+                "collectives": dict(pm.COLLECTIVES),
+                "halo_bytes": sp.HALO["bytes"],
+                "halo_host_ms": sp.HALO["seconds"] * 1e3}
+
+    cfg = train_config("float32")
+    with tf32(torch, False), deterministic_cudnn(torch):
+        pred = Predictor(serve_config(cfg), sd, mesh=mesh)
+        counted()
+        depth = pred.predict(b8)
+        out["predict"] = counts()
+        np.save(os.path.join(root, f"pred-{mesh.rank}.npy"), depth)
+        del pred
+        model, spec, _, _ = train_setup(torch, cfg, dev, state_dict=sd)
+        grads, _ = make_micro_grad_fn(model, spec, cfg, mesh=mesh)(
+            b8, generator=torch.Generator(device=dev).manual_seed(3))
+        names = list(grads)
+        grads = dict(zip(names, pm.all_reduce_sum(
+            [grads[k] for k in names], mesh)))
+        if mesh.is_main:
+            torch.save({k: v.cpu() for k, v in grads.items()},
+                       os.path.join(root, "grads.pt"))
+        del model, grads
+        model, spec, state, _ = train_setup(torch, cfg, dev, state_dict=sd)
+        step = make_train_step(model, spec, cfg, mesh=mesh)
+        out["steps"] = []
+        for i in range(2):
+            if i:  # from the plain step's parameters, momentum our own
+                model.load_state_dict(torch.load(
+                    os.path.join(root, "ref-state-0.pt"), weights_only=True))
+            counted()
+            sums = step(state, b8, generator=torch.Generator(
+                device=dev).manual_seed(10 + i))
+            sums = {k: float(v) for k, v in sums.items()}
+            out["steps"].append(dict(counts(), sums=sums,
+                                     replicated=pm.assert_replicated(
+                                         model, mesh)))
+            if mesh.is_main:
+                torch.save({k: v.cpu() for k, v in
+                            model.state_dict().items()},
+                           os.path.join(root, f"state-{i}.pt"))
+        del model, state, step
+    torch.cuda.empty_cache()
+    out["bf16"] = spatial_bf16_steps(torch, dev, sd, b8, mesh)
+    print(json.dumps(out), flush=True)
+    mesh.barrier()
+    pm.destroy_mesh(mesh)
+    return 0
+
+
+def spatial_bf16_steps(torch, dev, sd, b8, mesh):
+    """SPATIAL_BF16_STEPS bf16 B=8 train steps from ``sd`` through ``mesh``
+    (None: the plain step): host-clock seconds of each (each ends in a
+    fetch of its loss), img/s, the halo exchanges and their host ms per
+    step, and the peak memory of this process beside what it held before."""
+    from radar_depth_tpu_torch.parallel import mesh as pm
+    from radar_depth_tpu_torch.parallel import spatial as sp
+    from radar_depth_tpu_torch.train.step import make_train_step
+
+    cfg = train_config("bfloat16")
+    model, spec, state, _ = train_setup(torch, cfg, dev, state_dict=sd)
+    step = make_train_step(model, spec, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pm.COLLECTIVES.clear()
+    sp.HALO.clear()
+    times, losses = [], []
+    gen = torch.Generator(device=dev)
+    for i in range(SPATIAL_BF16_STEPS):
+        gen.manual_seed(20 + i)
+        t0 = time.perf_counter()
+        losses.append(float(step(state, b8, generator=gen)["loss"]))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    n = SPATIAL_BF16_STEPS
+    out = {"img_per_s": B_TRAIN / statistics.median(times[1:]),
+           "step_ms": [t * 1e3 for t in times], "losses": losses,
+           "peak_gib": peak / 2**30, "held_before_gib": base / 2**30,
+           "step_peak_gib": (peak - base) / 2**30,
+           "halo_per_step": pm.COLLECTIVES["halo"] / n,
+           "halo_grad_per_step": pm.COLLECTIVES["halo_grad"] / n,
+           "halo_host_ms_per_step": sp.HALO["seconds"] * 1e3 / n}
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spatial(torch, np, dev, batch, tmp):
+    """Spatial partitioning (parallel/spatial.py) on the card: two gloo
+    processes on card 0 with image height sharded over both, against the
+    single-process paths on the same weights and batch."""
+    from radar_depth_tpu_torch.config import serve_config
+    from radar_depth_tpu_torch.inference import Predictor
+    from radar_depth_tpu_torch.train.step import make_micro_grad_fn
+
+    b8 = {k: v[:B_TRAIN] for k, v in batch.items()}
+    cfg = train_config("float32")
+    sd = train_init(torch, train_setup(torch, cfg, "cpu")[0], 5).state_dict()
+    out = {"phase": "spatial", "batch": B_TRAIN, "space": SPATIAL,
+           "height": H, "width": W, "ranks_on_card_0": SPATIAL,
+           "backend": "gloo"}
+    # the single-process references, the card to itself
+    with deterministic_cudnn(torch):
+        plain_bf16 = spatial_bf16_steps(torch, dev, sd, b8, None)
+    with tf32(torch, False), deterministic_cudnn(torch):
+        ref_depth = Predictor(serve_config(cfg), sd, device=dev,
+                              plain=True).predict(b8)
+        model, spec, _, _ = train_setup(torch, cfg, dev, state_dict=sd)
+        ref_grads, _ = make_micro_grad_fn(model, spec, cfg)(
+            b8, generator=torch.Generator(device=dev).manual_seed(3))
+        ref_grads = {k: v.double().cpu() for k, v in ref_grads.items()}
+        ref_model, spec, ref_state, ref_step = train_setup(
+            torch, cfg, dev, state_dict=sd)
+        ref_sums, ref_states = [], []
+        for i in range(2):
+            ref_sums.append({k: float(v) for k, v in ref_step(
+                ref_state, b8, generator=torch.Generator(
+                    device=dev).manual_seed(10 + i)).items()})
+            ref_states.append({k: v.detach().cpu().clone()
+                               for k, v in ref_model.state_dict().items()})
+        del model
+    torch.cuda.empty_cache()
+
+    root = os.path.join(tmp, "spatial")
+    os.makedirs(root, exist_ok=True)
+    torch.save(sd, os.path.join(root, "weights.pt"))
+    torch.save(ref_states[0], os.path.join(root, "ref-state-0.pt"))
+    np.savez(os.path.join(root, "batch.npz"), **b8)
+    port = free_port()
+    cmd = [sys.executable, os.path.abspath(__file__), "--spatial-worker",
+           root]
+    t0 = time.perf_counter()
+    results = run_procs([cmd] * SPATIAL,
+                        lambda r: dp_env(r, SPATIAL, port), DP_TIMEOUT_S)
+    out["seconds"] = time.perf_counter() - t0
+    lines = {}
+    for rank, (rc, o, e) in enumerate(results):
+        if rc != 0:
+            raise AssertionError(f"spatial rank {rank} exit {rc}:\n"
+                                 f"{o[-2000:]}\n{e[-4000:]}")
+        rec = json.loads([x for x in o.splitlines() if x.startswith("{")][-1])
+        lines[rec["rank"]] = rec
+    if sorted(lines) != list(range(SPATIAL)):
+        raise AssertionError(f"spatial ranks {sorted(lines)}")
+
+    # (a) the forward: each rank the whole map, the plain path's
+    depths = [np.load(os.path.join(root, f"pred-{r}.npy"))
+              for r in range(SPATIAL)]
+    err = rel_rmse(np, depths[0], ref_depth)
+    want = {KERNELS["A"]: 0, KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD,
+            KERNELS["C"]: 1}
+    got = [lines[r]["predict"]["launches"] for r in range(SPATIAL)]
+    if (err > PARITY_REL_RMSE_TOL or depths[0].shape != ref_depth.shape
+            or not all(np.array_equal(d, depths[0]) for d in depths)
+            or any(g != want for g in got)):
+        raise AssertionError(f"spatial predict: rel RMSE {err:.2e}, "
+                             f"launches {got}, expected {want}")
+    fwd = lines[0]["predict"]
+    halos = fwd["collectives"].get("halo", 0)
+    out["predict"] = {
+        "rel_rmse_vs_plain": err, "ranks_bit_equal": True,
+        "launches_per_rank": got,
+        "halo_exchanges_per_forward": halos,
+        "halo_bytes_per_exchange": fwd["halo_bytes"] / max(halos, 1),
+        "halo_host_ms": fwd["halo_host_ms"],
+        "collectives_per_rank": fwd["collectives"]}
+
+    # (b) the train step: gradients, two steps, replicas
+    grads = torch.load(os.path.join(root, "grads.pt"), weights_only=True)
+    ratios = {k: float(grads[k].double().norm() / w.norm())
+              for k, w in ref_grads.items() if float(w.norm()) > 0}
+    lo, hi = min(ratios.values()), max(ratios.values())
+    if not GRAD_NORM_RATIO[0] < lo <= hi < GRAD_NORM_RATIO[1]:
+        raise AssertionError(f"spatial gradient norm ratios {lo:.4f}-"
+                             f"{hi:.4f}: {min(ratios, key=ratios.get)}, "
+                             f"{max(ratios, key=ratios.get)}")
+    steps = lines[0]["steps"]
+    cmp = []
+    for i in range(2):  # each from the same parameters (the worker's note)
+        before = sd if i == 0 else ref_states[0]
+        got_model, want_model = (train_setup(torch, cfg, dev, state_dict=t)[0]
+                                 for t in (torch.load(os.path.join(
+                                     root, f"state-{i}.pt"),
+                                     weights_only=True), ref_states[i]))
+        cmp.append(compare_steps(
+            np, {k: v.double() for k, v in before.items()}, got_model,
+            want_model, steps[i]["sums"], ref_sums[i],
+            f"spatial step {i} vs 1 process"))
+        del got_model, want_model
+    want_train = {KERNELS["A"]: 0, KERNELS["B"]: 0, KERNELS["C"]: 1}
+    for r in range(SPATIAL):
+        for i, st in enumerate(lines[r]["steps"]):
+            if (not st["replicated"] or st["launches"] != want_train
+                    or st["sums"] != steps[i]["sums"]):
+                raise AssertionError(f"spatial rank {r} step {i}: {st}")
+    st = steps[0]
+    out["train"] = {
+        "grad_norm_ratio": [lo, hi], "vs_one_process_steps": cmp,
+        "losses": [s["sums"]["loss"] for s in steps],
+        "ref_losses": [s["loss"] for s in ref_sums],
+        "params_bit_equal_across_ranks": True,
+        "launches_per_rank_step": st["launches"],
+        "halo_exchanges_per_step": st["collectives"].get("halo", 0),
+        "halo_grad_exchanges_per_step": st["collectives"].get("halo_grad", 0),
+        "halo_bytes_per_exchange": st["halo_bytes"] / max(
+            st["collectives"].get("halo", 0)
+            + st["collectives"].get("halo_grad", 0), 1),
+        "halo_host_ms_per_step": st["halo_host_ms"],
+        "collectives_per_rank_step": st["collectives"]}
+    del ref_model, ref_state, ref_step
+    torch.cuda.empty_cache()
+
+    # (c) bf16 speed and per-rank memory beside the plain step's
+    out["bf16"] = {"spatial_rank": [lines[r]["bf16"] for r in range(SPATIAL)],
+                   "plain": plain_bf16,
+                   "img_per_s_spatial": lines[0]["bf16"]["img_per_s"],
+                   "img_per_s_plain": plain_bf16["img_per_s"],
+                   "rank_step_peak_over_plain": max(
+                       lines[r]["bf16"]["step_peak_gib"]
+                       for r in range(SPATIAL))
+                   / plain_bf16["step_peak_gib"]}
+    emit(out)
+    return out
+
+
 def profile_harness(torch, base, out_dir):
     """Device time and idle share of one harness train epoch (the second:
     the first warms up), native loader with host augmentation, under
@@ -2369,6 +2654,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dp-worker", metavar="DIR",
                     help="run one rank of phase data_parallel's part (b) on "
                          "the files in DIR (the phase starts these itself)")
+    ap.add_argument("--spatial-worker", metavar="DIR",
+                    help="run one rank of phase spatial on the files in DIR "
+                         "(the phase starts these itself)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2388,6 +2676,8 @@ def main(argv=None) -> int:
         return 2
     if args.dp_worker:
         return dp_worker(args.dp_worker)
+    if args.spatial_worker:
+        return spatial_worker(args.spatial_worker)
 
     dev = torch.device("cuda", 0)
     t_start = t0 = time.perf_counter()
@@ -2441,6 +2731,7 @@ def main(argv=None) -> int:
         harness, prof_harness = phase_harness(
             torch, np, dev, train["bfloat16"]["img_per_s"], tmp)
         dp = phase_data_parallel(torch, np, dev, batch, tmp)
+        spatial = phase_spatial(torch, np, dev, batch, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2475,6 +2766,9 @@ def main(argv=None) -> int:
          "launches_data_parallel_rank_eval_step": [
              r[KERNELS["B"]] for r in dp["gloo_two_ranks"][
                  "launches_per_rank"]["eval_step"]],
+         "launches_spatial_rank_forward": [
+             r[KERNELS["B"]] for r in spatial["predict"][
+                 "launches_per_rank"]],
          "launches_serve_http": {
              k: r["launches"][KERNELS["B"]]
              for k, r in serve_http["requests"].items()},
@@ -2500,6 +2794,9 @@ def main(argv=None) -> int:
          "launches_data_parallel_rank_train_step": [
              r[KERNELS["C"]] for r in dp["gloo_two_ranks"][
                  "launches_per_rank"]["train_step"]],
+         "launches_spatial_rank_forward": [
+             r[KERNELS["C"]] for r in spatial["predict"][
+                 "launches_per_rank"]],
          "launches_serve_http": {
              k: r["launches"][KERNELS["C"]]
              for k, r in serve_http["requests"].items()},
@@ -2527,7 +2824,7 @@ def main(argv=None) -> int:
                        "train": train, "eval": ev, "profile": prof,
                        "profile_train": prof_train,
                        "harness": harness, "profile_harness": prof_harness,
-                       "data_parallel": dp,
+                       "data_parallel": dp, "spatial": spatial,
                        "serve_http": serve_http, "export": export,
                        "epilogue_host_us": epi_host,
                        "zoo": zoo, "profile_zoo": prof_zoo,

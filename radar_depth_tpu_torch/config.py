@@ -4,10 +4,11 @@ and command line, and the serving subset ``ServeConfig``.
 
 A ``config.json`` written by either package loads in the other
 (``save_config`` / ``load_config``). Every flag and choice of the JAX CLI
-parses here and runs, except ``--spatial`` > 1, which parses and loads and
-for which ``require_ported`` (called by the Trainer and
-``Predictor.from_run``) raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
+parses here and runs in the Trainer and ``Predictor.from_run``;
+``require_ported`` (called by both) raises ``NotImplementedError`` naming
+the ROADMAP item of any setting that would not, and finds none.
+``--spatial S`` runs under ``torchrun`` with a multiple of S ranks
+(``parallel/spatial.py``).
 
 Data parallelism takes no flag, as in the JAX CLI (which takes every
 visible device): ``torchrun``'s environment makes the mesh
@@ -190,10 +191,9 @@ class TrainConfig:
 
 
 def unported(cfg: TrainConfig) -> List[str]:
-    """The settings of ``cfg`` that the port does not run yet, each with the
-    ROADMAP item that ports it: ``--spatial`` alone."""
-    if cfg.spatial > 1:
-        return [f"--spatial {cfg.spatial} (ROADMAP Queue A item 5)"]
+    """The settings of ``cfg`` that the Trainer and ``Predictor.from_run``
+    do not run yet, each with the ROADMAP item that ports it: none. (The
+    HTTP daemon checks its own: ``serve.py``.)"""
     return []
 
 
@@ -351,8 +351,8 @@ def parse_command(argv=None) -> TrainConfig:
                    help="save a checkpoint every k-th epoch (best-RMSE "
                         "improvements and the final epoch always save)")
     p.add_argument("--spatial", type=int, default=1,
-                   help="shard image height over this many devices (not "
-                        "ported)")
+                   help="shard image height over this many ranks (a "
+                        "(data, space) mesh of the torchrun ranks)")
     p.add_argument("--seed", type=int, default=42)
     # data
     p.add_argument("--dataset", default="synthetic",

@@ -17,7 +17,14 @@ kernel A with ``raster_backend="scatter"``) ->
 ``pack_model_inputs`` -> the model forward (kernel B at every BN->ReLU) ->
 ``pred[..., 0]``. PyTorch launches asynchronously; the copy of the result to
 the host is the only wait.
+
+Over ranks (``mesh``, ``Predictor.from_run`` with ``spatial`` > 1 under
+``torchrun``): every rank calls ``predict`` with the same global batch and
+gets the whole (B, H, W) map. Each rank prepares its data-axis rows at
+full height, runs its slab of image rows (``parallel/spatial.py``), and
+the slabs and rows are put together again (``unslab``, ``gather_batch``).
 """
+
 
 from __future__ import annotations
 
@@ -44,12 +51,25 @@ from radar_depth_tpu_torch.metrics import compute_metric_sums, finalize_metrics
 from radar_depth_tpu_torch.models import (
     blend_by_brightness,
     create_model,
+    use_mesh,
     use_plain_kernels,
 )
 from radar_depth_tpu_torch.ops.preprocess import (
     PreprocessConfig,
     pack_model_inputs,
     prepare_eval_batch,
+)
+from radar_depth_tpu_torch.parallel.mesh import (
+    destroy_mesh,
+    gather_batch,
+    is_distributed,
+    local_rows,
+    make_spatial_mesh,
+    pad_batch_to,
+)
+from radar_depth_tpu_torch.parallel.spatial import (
+    spatial_constraint,
+    unslab,
 )
 
 # The serving artifact's own record, stored beside the exported program:
@@ -126,14 +146,22 @@ class Predictor:
     state_dict_from_jax_variables`` carries a JAX run's variables across).
 
     ``plain=True`` runs the kernels' plain PyTorch versions, on any device:
-    the reference that a kernel run on the card is held against."""
+    the reference that a kernel run on the card is held against.
+
+    ``mesh`` (``parallel.mesh.DataMesh`` with a process group, on its
+    device): the ranks serve together, each calling with the same global
+    batch (module docstring); with a space axis each runs a slab of image
+    rows. ``close`` destroys a mesh that ``from_run`` made."""
 
     def __init__(self, cfg: ServeConfig, state_dict: Mapping,
                  device: str | torch.device | None = None, plain: bool = False,
-                 metric_avg: str = "batch"):
+                 metric_avg: str = "batch", mesh=None):
         self.cfg = cfg
         self.metric_avg = metric_avg
-        self.device = resolve_device(device)
+        self.mesh = mesh if is_distributed(mesh) else None
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
+        self._own_mesh = None
         self.plain = plain
         spec = cfg.sample_spec()
         self.model, self.arch_spec = create_model(
@@ -141,7 +169,7 @@ class Predictor:
             output_size=(spec.height, spec.width), dtype=cfg.torch_dtype,
             **cfg.arch_kwargs())
         self.model.load_state_dict(state_dict)
-        use_plain_kernels(self.model, plain)
+        use_mesh(use_plain_kernels(self.model, plain), self.mesh)
         self._pre = PreprocessConfig(spec=spec,
                                      height_extension=cfg.height_extension,
                                      raster_backend=cfg.raster_backend)
@@ -152,7 +180,10 @@ class Predictor:
                  **cfg_overrides) -> "Predictor":
         """The best (else latest) checkpoint of a training run. The run's
         config.json gives the model and data flags; ``cfg`` replaces it and
-        ``cfg_overrides`` (top-level TrainConfig fields) amend it."""
+        ``cfg_overrides`` (top-level TrainConfig fields) amend it. With
+        ``spatial`` > 1 it serves over the (data, space) mesh of the
+        ``torchrun`` ranks (``make_spatial_mesh``, gloo for
+        ``device="cpu"``), which ``close`` destroys."""
         from radar_depth_tpu_torch.train import checkpoint as ckpt_lib
 
         if cfg is None:
@@ -163,32 +194,58 @@ class Predictor:
         require_ported(cfg)
         step_dir = ckpt_lib.resolve_checkpoint(run_dir)
         state_dict = ckpt_lib.load_payload(step_dir)["model"]
-        return cls(serve_config(cfg), state_dict, device=device, plain=plain,
-                   metric_avg=cfg.metric_avg)
+        mesh = None
+        if cfg.spatial > 1:
+            cpu = device is not None and torch.device(device).type == "cpu"
+            mesh = make_spatial_mesh(cfg.spatial, "cpu" if cpu else "default")
+        out = cls(serve_config(cfg), state_dict, device=device, plain=plain,
+                  metric_avg=cfg.metric_avg, mesh=mesh)
+        out._own_mesh = mesh
+        return out
+
+    def close(self) -> None:
+        """Destroy the process group of a mesh that ``from_run`` made."""
+        destroy_mesh(self._own_mesh)
+        self._own_mesh = None
 
     @torch.inference_mode()
     def _forward(self, batch: Dict):
-        prepared = prepare_eval_batch(batch, self._pre, self.device,
-                                      plain=self.plain)
+        """This rank's rows (and slab) of the prediction and the target."""
+        prepared = spatial_constraint(prepare_eval_batch(
+            local_rows(batch, self.mesh), self._pre, self.device,
+            plain=self.plain), self.mesh)
         out = self.model(*pack_model_inputs(
             prepared, self.arch_spec.input_kind, self.cfg.modality))
         pred = out[1] if self.arch_spec.multistage else out
         if self.arch_spec.multistage and self.cfg.blend_tau > 0:
             pred = blend_by_brightness(out[0], out[1], prepared["rgb"],
-                                       self.cfg.blend_tau)
+                                       self.cfg.blend_tau, self.mesh)
         return pred, prepared["target"]
 
     def infer(self, batch: Dict) -> torch.Tensor:
         """One raw batch -> (B, H, W) float32 prediction on the device,
-        without waiting for it."""
-        return self._forward(batch)[0][..., 0]
+        without waiting for it. Over a mesh: the same global batch on every
+        rank (B a multiple of the data axis), the whole map on every
+        rank."""
+        pred = self._forward(batch)[0][..., 0]
+        if self.mesh is None:
+            return pred
+        return gather_batch(unslab(pred, self.mesh, self.cfg.height, 1),
+                            self.mesh)
 
     def evaluate(self, batch: Dict) -> Dict[str, float]:
         """Raw schema batch -> the reference's Result-style metrics against
-        the batch's LiDAR depth (``metric_avg`` convention)."""
+        the batch's LiDAR depth (``metric_avg`` convention). Over a mesh the
+        batch is padded to a multiple of the data axis with samples that
+        carry no valid target."""
+        if self.mesh is not None:
+            b = len(next(iter(batch.values())))
+            d = self.mesh.data_size
+            batch = pad_batch_to({k: np.asarray(v) for k, v in batch.items()},
+                                 -(-b // d) * d)[0]
         pred, target = self._forward(batch)
-        return finalize_metrics(compute_metric_sums(pred, target,
-                                                    self.metric_avg))
+        return finalize_metrics(compute_metric_sums(
+            pred, target, self.metric_avg, self.mesh))
 
     def predict(self, batch: Dict, max_tile: int = 128) -> np.ndarray:
         """Raw schema batch -> (B, H, W) predicted depth in meters.
@@ -196,12 +253,16 @@ class Predictor:
         Requests are tiled into power-of-two chunks of at most ``max_tile``
         samples, a short tail padded by repeating the last sample and the
         padding sliced off, as the JAX Predictor does. Eval-mode BN and no
-        cross-sample ops make tiling value-identical to a single call."""
+        cross-sample ops make tiling value-identical to a single call. Over
+        a mesh a tile is padded up to a multiple of the data axis."""
         arrs = {k: np.asarray(v) for k, v in batch.items()}
         b = next(iter(arrs.values())).shape[0]
         tile = 1
         while tile < b and tile < max_tile:
             tile *= 2
+        if self.mesh is not None:
+            d = self.mesh.data_size
+            tile = -(-tile // d) * d
         outs = []
         for i in range(0, b, tile):
             chunk = {k: v[i:i + tile] for k, v in arrs.items()}
@@ -219,7 +280,10 @@ class Predictor:
         as one ``torch.export`` program, weights baked in, at a fixed batch
         size, on this Predictor's device. Every kernel is a ``rdt.*`` node
         of the graph. Returns the file's byte count; load it with
-        ``load_serving``."""
+        ``load_serving``. A Predictor over a mesh does not export."""
+        if self.mesh is not None:
+            raise ValueError("export_serving exports a Predictor without a "
+                             "mesh: its collectives do not export")
         dtypes = sample_dtypes()
         example = {k: torch.from_numpy(np.zeros((batch_size,) + shape,
                                                 dtypes[k])).to(self.device)

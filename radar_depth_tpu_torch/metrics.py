@@ -19,6 +19,7 @@ from typing import Dict
 import torch
 
 from radar_depth_tpu_torch.parallel.mesh import all_reduce_sum, is_distributed
+from radar_depth_tpu_torch.parallel.spatial import is_spatial
 
 METRIC_FIELDS = (
     "irmse", "imae", "mse", "rmse", "mae", "absrel", "lg10",
@@ -92,13 +93,16 @@ def compute_metric_sums(pred: torch.Tensor, target: torch.Tensor,
     is this rank's rows of the global batch and the sums are the global
     batch's, the same on every rank. "sample" sums add over ranks; "batch"
     pools the pixel totals, the valid count and n over ranks before the
-    divide and the square roots.
+    divide and the square roots. With a space axis the tensors are row
+    slabs of this rank's samples (``_spatial_sums``).
     """
     dtype = torch.promote_types(pred.dtype, torch.float32)
     pred = pred.to(dtype)
     target = target.to(dtype)
     valid = target > 0
     terms = _per_pixel_terms(pred, target, valid)
+    if is_spatial(mesh):
+        return _spatial_sums(terms, valid, convention, mesh, dtype)
 
     if convention == "batch":
         count = valid.sum()
@@ -128,6 +132,44 @@ def compute_metric_sums(pred: torch.Tensor, target: torch.Tensor,
         names = list(sums)
         sums = dict(zip(names, all_reduce_sum([sums[k] for k in names], mesh,
                                               dtype=torch.float64)))
+    return sums
+
+
+def _spatial_sums(terms: Dict[str, torch.Tensor], valid: torch.Tensor,
+                  convention: str, mesh, dtype) -> Dict[str, torch.Tensor]:
+    """The metric sums of the global batch from row slabs: a table of each
+    sample's masked pixel totals and valid count, with one row per sample
+    of the global batch, zero but for this rank's own samples' rows, is
+    summed over the world (the slabs of a sample add up to its totals), so
+    every rank finishes the same sums from whole samples, as one process
+    does: per-sample means and square roots ("sample"), or the pooled
+    totals and n, the samples with a valid pixel in any slab ("batch")."""
+    if convention not in ("batch", "sample"):
+        raise ValueError(f"unknown metric convention {convention!r}")
+    names = list(terms)
+    axes = tuple(range(1, valid.dim()))
+    zero = torch.zeros((), dtype=dtype, device=valid.device)
+    part = torch.stack([torch.where(valid, terms[k], zero).sum(axes)
+                        for k in names] + [valid.sum(axes).to(dtype)], 1)
+    n = part.shape[0]
+    table = torch.zeros((n * mesh.data_size, len(names) + 1),
+                        dtype=torch.float64, device=valid.device)
+    table[mesh.data_index * n:(mesh.data_index + 1) * n] = part
+    table, = all_reduce_sum([table], mesh)
+    table = table.to(dtype)
+    totals, count = table[:, :-1], table[:, -1]
+    has_valid = (count > 0).to(dtype)
+    if convention == "batch":
+        per = _finish_sqrt({k: _pooled_mean(totals[:, i].sum(), count.sum())
+                            for i, k in enumerate(names)})
+        n_valid = has_valid.sum()
+        sums = {name: val * n_valid for name, val in per.items()}
+        sums["count"] = n_valid
+        return sums
+    per = _finish_sqrt({k: _pooled_mean(totals[:, i], count)
+                        for i, k in enumerate(names)})
+    sums = {name: (val * has_valid).sum() for name, val in per.items()}
+    sums["count"] = has_valid.sum()
     return sums
 
 

@@ -35,6 +35,9 @@ class DeConvBlock(nn.Module):
                                    device=device)
         self.bn = make_norm(features, device)
 
+    def plan_rows(self, h: int) -> int:
+        return self.bn.plan_rows(self.convt.plan_rows(h))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(self.convt(x), relu=True)
 
@@ -49,6 +52,9 @@ class UpConvBlock(nn.Module):
         self.conv = UnpoolConv(cin, features, 5, dtype=dtype,
                                param_dtype=param_dtype, device=device)
         self.bn = make_norm(features, device)
+
+    def plan_rows(self, h: int) -> int:
+        return self.bn.plan_rows(self.conv.plan_rows(h))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(self.conv(x), relu=True)
@@ -70,6 +76,12 @@ class UpProjBlock(nn.Module):
         self.branch1_bn2 = make_norm(features, device)
         self.branch2_conv = UnpoolConv(cin, features, 5, **conv)
         self.branch2_bn = make_norm(features, device)
+
+    def plan_rows(self, h: int) -> int:
+        h1 = self.branch1_bn1.plan_rows(self.branch1_conv1.plan_rows(h))
+        self.branch1_bn2.plan_rows(self.branch1_conv2.plan_rows(h1))
+        self.branch2_bn.plan_rows(self.branch2_conv.plan_rows(h))
+        return h1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b1 = self.branch1_bn1(self.branch1_conv1(x), relu=True)
@@ -102,6 +114,11 @@ class Decoder(nn.Module):
             setattr(self, f"layer{i + 1}", block)
             c //= 2
         self.out_channels = c
+
+    def plan_rows(self, h: int) -> int:
+        for i in range(NUM_LAYERS):
+            h = getattr(self, f"layer{i + 1}").plan_rows(h)
+        return h
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(NUM_LAYERS):

@@ -31,6 +31,8 @@ class DepthNet(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.output_size = tuple(output_size)
+        self.mesh = None  # of the resize, in spatial mode (use_mesh)
+        self.resize_rows = None  # the resize's global input height
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.encoder = ResNetEncoder(depth, in_channels, **kw)
         c = self.encoder.out_channels
@@ -39,8 +41,17 @@ class DepthNet(nn.Module):
         self.decoder = Decoder(decoder_kind, c // 2, **kw)
         self.conv3 = HeadConv3(self.decoder.out_channels, **kw)
 
+    def plan_rows(self, h: int | None = None) -> int:
+        """Record the global heights of every op along H (spatial mode);
+        ``LateFusionNet.plan_rows``."""
+        h = self.bn2.plan_rows(self.conv2.plan_rows(self.encoder.plan_rows(
+            h or self.output_size[0])))
+        self.resize_rows = self.conv3.plan_rows(self.decoder.plan_rows(h))
+        return self.output_size[0]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.bn2(self.conv2(self.encoder(to_nchw(x, self.dtype))))
-        y = resize_bilinear(self.conv3(self.decoder(y)), *self.output_size)
+        y = resize_bilinear(self.conv3(self.decoder(y)), *self.output_size,
+                            self.mesh, self.resize_rows)
         y = y.to(torch.promote_types(y.dtype, torch.float32))
         return y.permute(0, 2, 3, 1)

@@ -26,6 +26,8 @@ from radar_depth_tpu_torch.models.layers import (
     to_nchw,
 )
 from radar_depth_tpu_torch.models.resnet import ResNetEncoder
+from radar_depth_tpu_torch.parallel.mesh import all_reduce_sum
+from radar_depth_tpu_torch.parallel.spatial import is_spatial
 
 
 class LateFusionNet(nn.Module):
@@ -40,6 +42,8 @@ class LateFusionNet(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.output_size = tuple(output_size)
+        self.mesh = None  # of the resize, in spatial mode (use_mesh)
+        self.resize_rows = None  # the resize's global input height
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.img_encoder = ResNetEncoder(depth, 3, **kw)
         self.radar_encoder = ResNetEncoder(depth, radar_in_channels, **kw)
@@ -50,12 +54,23 @@ class LateFusionNet(nn.Module):
         self.decoder = Decoder(decoder_kind, c // 2, **kw)
         self.conv3 = HeadConv3(self.decoder.out_channels, **kw)
 
+    def plan_rows(self, h: int | None = None) -> int:
+        """Record the global heights of every op along H for inputs of
+        ``h`` rows (default: ``output_size``'s), for spatial mode; returns
+        the output's."""
+        h = h or self.output_size[0]
+        self.radar_encoder.plan_rows(h)
+        e = self.bn2.plan_rows(self.conv2.plan_rows(
+            self.img_encoder.plan_rows(h)))
+        self.resize_rows = self.conv3.plan_rows(self.decoder.plan_rows(e))
+        return self.output_size[0]
+
     def forward(self, rgb: torch.Tensor, radar: torch.Tensor) -> torch.Tensor:
         fi = self.img_encoder(to_nchw(rgb, self.dtype))
         fr = self.radar_encoder(to_nchw(radar, self.dtype))
         y = self.bn2(self.conv2(torch.cat([fi, fr], dim=1)))
         y = self.conv3(self.decoder(y))
-        y = resize_bilinear(y, *self.output_size)
+        y = resize_bilinear(y, *self.output_size, self.mesh, self.resize_rows)
         y = y.to(torch.promote_types(y.dtype, torch.float32))
         return y.permute(0, 2, 3, 1)
 
@@ -82,10 +97,22 @@ def filter_radar_by_prediction(radar: torch.Tensor, pred: torch.Tensor,
 
 
 def blend_by_brightness(coarse: torch.Tensor, refined: torch.Tensor,
-                        rgb: torch.Tensor, tau: float) -> torch.Tensor:
+                        rgb: torch.Tensor, tau: float,
+                        mesh=None) -> torch.Tensor:
     """Per sample: ``refined`` where the mean RGB is below ``tau`` (dark),
-    ``coarse`` where brighter."""
-    bright = rgb.float().mean(dim=(1, 2, 3))
+    ``coarse`` where brighter. With a spatial ``mesh`` the tensors are row
+    slabs and each sample's sum and count are first summed over the space
+    group."""
+    if is_spatial(mesh):
+        part = torch.stack([rgb.float().sum(dim=(1, 2, 3)),
+                            torch.full((rgb.shape[0],), rgb[0].numel(),
+                                       dtype=torch.float32,
+                                       device=rgb.device)], 1)
+        total, = all_reduce_sum([part], mesh, torch.float64,
+                                mesh.space_group)
+        bright = (total[:, 0] / total[:, 1]).float()
+    else:
+        bright = rgb.float().mean(dim=(1, 2, 3))
     dark = (bright < tau)[:, None, None, None]
     return torch.where(dark, refined, coarse)
 
@@ -130,6 +157,10 @@ class MultiStageNet(nn.Module):
                                     else 1, **kw)
         self.stage_log_var = (nn.Parameter(torch.zeros(2, device=device))
                               if uncertainty else None)
+
+    def plan_rows(self, h: int | None = None) -> int:
+        self.stage1.plan_rows(h)
+        return self.stage2.plan_rows(h)
 
     def _run(self, stage: LateFusionNet, rgb, radar):
         if not (self.remat and self.training and torch.is_grad_enabled()):

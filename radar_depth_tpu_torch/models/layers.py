@@ -13,6 +13,16 @@ Parameter names follow the flax tree: a conv's ``kernel`` is ``weight``
 ``batch_stats`` ``mean``/``var`` are ``running_mean``/``running_var``.
 Convs hold their weight in ``param_dtype`` and compute in ``dtype``, as
 flax's modules do: training keeps float32 weights and casts them per call.
+
+Spatial partitioning (``parallel/spatial.py``): with a mesh whose space axis
+has more than one rank (``use_mesh``), every op with an extent along H (the
+convs, the transposed convs, the max pool, the resize) takes this rank's
+slab of rows and returns its slab of the output rows, computed from
+``gather_rows`` of the input rows they read, with no padding in H. Each op
+must know the global height of its input: ``plan_rows(h)`` records it and
+returns the output's, and the models call it down their forward order
+(``use_mesh`` starts it at the model's full height). BN needs the global
+height too, to weight its rank's moments.
 """
 
 from __future__ import annotations
@@ -26,6 +36,13 @@ from torch import nn
 
 from radar_depth_tpu_torch.ops import kernels
 from radar_depth_tpu_torch.parallel.mesh import global_moments, is_distributed
+from radar_depth_tpu_torch.parallel.spatial import (
+    check_rows,
+    gather_rows,
+    is_spatial,
+    owned_rows,
+    windows_of,
+)
 
 
 def _param(shape, dtype, device, channels_last=False) -> nn.Parameter:
@@ -49,7 +66,31 @@ def _channels_last(y: torch.Tensor) -> torch.Tensor:
     return y.contiguous(memory_format=torch.channels_last)
 
 
-class Conv2d(nn.Module):
+class _RowsAlongH:
+    """What an op along H needs in spatial mode: ``mesh`` (set by
+    ``use_mesh``) and the global heights of its input and output (set by
+    ``plan_rows``)."""
+
+    mesh = None
+    rows_in = rows_out = None
+
+    def out_rows(self, h: int) -> int:
+        raise NotImplementedError
+
+    def plan_rows(self, h: int) -> int:
+        self.rows_in, self.rows_out = h, self.out_rows(h)
+        check_rows(self.rows_out, self.mesh, type(self).__name__)
+        return self.rows_out
+
+    def gather(self, x: torch.Tensor, need, pad: float = 0.0):
+        """The input rows this rank's output rows read: ``need(a, b)`` ->
+        (lo, hi) for output rows [a, b)."""
+        return gather_rows(x, self.mesh, self.rows_in,
+                           windows_of(self.rows_out, self.mesh.space_size,
+                                      need), pad)
+
+
+class Conv2d(_RowsAlongH, nn.Module):
     """Bias-free conv with torch-style symmetric padding, computed in
     ``dtype``. The weight is held in ``param_dtype`` (default: ``dtype``, so
     serving casts a float32 state_dict once at load); with float32 weights
@@ -65,10 +106,18 @@ class Conv2d(nn.Module):
         self.weight = _param((cout, cin, kernel_size, kernel_size),
                              param_dtype or dtype, device, channels_last=True)
 
+    def out_rows(self, h: int) -> int:
+        k = self.weight.shape[2]
+        return (h + 2 * self.padding - k) // self.stride + 1
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _channels_last(F.conv2d(
-            x.to(self.dtype), self.weight.to(self.dtype), stride=self.stride,
-            padding=self.padding))
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        if not is_spatial(self.mesh):
+            return _channels_last(F.conv2d(x, w, stride=self.stride,
+                                           padding=self.padding))
+        k, s, p = w.shape[2], self.stride, self.padding
+        x = self.gather(x, lambda a, b: (a * s - p, (b - 1) * s - p + k))
+        return _channels_last(F.conv2d(x, w, stride=s, padding=(0, p)))
 
 
 class HeadConv3(Conv2d):
@@ -91,12 +140,14 @@ class UnpoolConv(Conv2d):
         super().__init__(cin, cout, kernel_size, 1, kernel_size // 2,
                          dtype=dtype, param_dtype=param_dtype, device=device)
 
+    def out_rows(self, h: int) -> int:
+        return 2 * h
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.weight.shape[-1]
         w = self.weight.to(self.dtype).flip((2, 3)).transpose(0, 1)
-        return _channels_last(F.conv_transpose2d(
-            x.to(self.dtype), w, stride=2, padding=k // 2,
-            output_padding=2 * (k // 2) + 2 - k))
+        return _transposed(self, x.to(self.dtype), w, 2, k // 2,
+                           2 * (k // 2) + 2 - k)
 
 
 class ConvTranspose(Conv2d):
@@ -113,11 +164,36 @@ class ConvTranspose(Conv2d):
                          param_dtype=param_dtype, device=device)
         self.output_padding = output_padding
 
+    def out_rows(self, h: int) -> int:
+        k = self.weight.shape[2]
+        return ((h - 1) * self.stride - 2 * self.padding + k
+                + self.output_padding)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(self.dtype).transpose(0, 1)
+        return _transposed(self, x.to(self.dtype), w, self.stride,
+                           self.padding, self.output_padding)
+
+
+def _transposed(op: Conv2d, x, w, s: int, p: int, out_pad: int):
+    """``conv_transpose2d(x, w, s, p, out_pad)``, or in spatial mode this
+    rank's output rows [a, b): input row i reaches output rows i*s - p +
+    [0, k), so they read input rows [ceil((a+p-k+1)/s), floor((b-1+p)/s)]
+    (zeros beyond the edges add nothing); the transposed conv of those rows
+    without padding in H starts at output row lo*s - p."""
+    if not is_spatial(op.mesh):
         return _channels_last(F.conv_transpose2d(
-            x.to(self.dtype), w, stride=self.stride, padding=self.padding,
-            output_padding=self.output_padding))
+            x, w, stride=s, padding=p, output_padding=out_pad))
+    k = w.shape[2]
+
+    def need(a, b):
+        return -((k - 1 - a - p) // s), (b - 1 + p) // s + 1
+
+    a, b = owned_rows(op.rows_out, op.mesh)
+    start = a - (need(a, b)[0] * s - p)
+    y = F.conv_transpose2d(op.gather(x, need), w, stride=s, padding=(0, p),
+                           output_padding=(0, out_pad))
+    return _channels_last(y[:, :, start:start + b - a])
 
 
 class BatchNorm(nn.Module):
@@ -138,7 +214,9 @@ class BatchNorm(nn.Module):
     float32 where a channel's mean dwarfs its spread. With a data mesh that
     has a process group (``use_mesh``) the statistics are those of the
     global batch (``parallel/mesh.py::global_moments``), as the JAX step
-    computes them over its one graph; eval mode is unchanged.
+    computes them over its one graph, each rank's moments weighted by its
+    share of the elements (row slabs of a spatial mesh differ by a row);
+    eval mode is unchanged.
     """
 
     def __init__(self, channels: int, epsilon: float = 1e-5,
@@ -151,12 +229,26 @@ class BatchNorm(nn.Module):
         # (``frozen_running_stats``): flax's remat moves the statistics once
         self.update_stats = True
         self.mesh = None  # parallel.mesh.DataMesh of the train-mode stats
+        self.rows_in = None  # global height of the input (spatial mode)
         self.weight = _param((channels,), torch.float32, device)
         self.bias = _param((channels,), torch.float32, device)
         self.register_buffer("running_mean", torch.empty(
             channels, dtype=torch.float32, device=device))
         self.register_buffer("running_var", torch.empty(
             channels, dtype=torch.float32, device=device))
+
+    def plan_rows(self, h: int) -> int:
+        self.rows_in = h
+        return h
+
+    def _share(self, x) -> float | None:
+        """This rank's fraction of the global element count per channel,
+        when its rows are a slab of the global height (spatial mode); else
+        None, every rank holding as many."""
+        if not is_spatial(self.mesh):
+            return None
+        n, _, h, w = x.shape
+        return (n * h * w) / (n * self.rows_in * w * self.mesh.data_size)
 
     def folded(self):
         scale = self.weight * torch.rsqrt(self.running_var + self.epsilon)
@@ -166,7 +258,8 @@ class BatchNorm(nn.Module):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
         if is_distributed(self.mesh):
-            mean, var = global_moments(mean, var, self.mesh)
+            mean, var = global_moments(mean, var, self.mesh,
+                                       self._share(x))
         if self.update_stats:
             with torch.no_grad():
                 m = self.momentum
@@ -210,11 +303,16 @@ def use_plain_kernels(model: nn.Module, plain: bool = True) -> nn.Module:
 
 
 def use_mesh(model: nn.Module, mesh) -> nn.Module:
-    """Normalize every train-mode BN of ``model`` with the statistics of
-    ``mesh``'s global batch (None: the rank's own batch)."""
+    """Point every module of ``model`` that has a ``mesh`` attribute at
+    ``mesh`` (None: the rank's own batch): train-mode BN normalizes with
+    the statistics of ``mesh``'s global batch, and with a space axis the
+    ops along H run on row slabs, their heights planned from the model's
+    full height (``model.plan_rows()``)."""
     for m in model.modules():
-        if isinstance(m, BatchNorm):
+        if hasattr(m, "mesh"):
             m.mesh = mesh
+    if is_spatial(mesh):
+        model.plan_rows()
     return model
 
 
@@ -234,10 +332,25 @@ def frozen_running_stats(model: nn.Module):
             m.update_stats = s
 
 
+def pool_rows(h: int, window: int = 3, stride: int = 2,
+              padding: int = 1) -> int:
+    return (h + 2 * padding - window) // stride + 1
+
+
 def max_pool_torch(x: torch.Tensor, window: int = 3, stride: int = 2,
-                   padding: int = 1) -> torch.Tensor:
-    """MaxPool2d(window, stride, padding), floor mode, -inf padding."""
-    return F.max_pool2d(x, window, stride, padding)
+                   padding: int = 1, mesh=None,
+                   rows: int | None = None) -> torch.Tensor:
+    """MaxPool2d(window, stride, padding), floor mode, -inf padding. With a
+    spatial ``mesh``, ``x`` is this rank's slab of ``rows`` global rows and
+    the result its slab of the output rows."""
+    if not is_spatial(mesh):
+        return F.max_pool2d(x, window, stride, padding)
+    windows = windows_of(
+        pool_rows(rows, window, stride, padding), mesh.space_size,
+        lambda a, b: (a * stride - padding,
+                      (b - 1) * stride - padding + window))
+    x = gather_rows(x, mesh, rows, windows, float("-inf"))
+    return F.max_pool2d(x, window, stride, (0, padding))
 
 
 _INTERP: dict = {}
@@ -267,12 +380,36 @@ def _interp_matrix(out_size: int, in_size: int, dtype: torch.dtype,
     return t
 
 
-def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+def _interp_window(out_size: int, in_size: int, a: int, b: int):
+    """[lo, hi) of the input rows that output rows [a, b) of
+    ``_interp_matrix(out_size, in_size)`` weight."""
+    scale = in_size / out_size
+
+    def src(o):
+        return int(np.floor((o + 0.5) * scale - 0.5))
+
+    return (min(max(src(a), 0), in_size - 1),
+            min(max(src(b - 1) + 1, 0), in_size - 1) + 1)
+
+
+def resize_bilinear(x: torch.Tensor, height: int, width: int, mesh=None,
+                    rows: int | None = None) -> torch.Tensor:
     """Bilinear resize with half-pixel centers and edge clamping
     (align_corners=False), in x's dtype, as two separable matmuls y = R_h x
     R_w^T: the JAX ``resize_bilinear_matmul``. Its backward is two matmuls
     as well, so a train step is deterministic on the card, where
-    ``F.interpolate``'s backward adds with atomics."""
-    rh = _interp_matrix(height, x.shape[2], x.dtype, x.device)
+    ``F.interpolate``'s backward adds with atomics. With a spatial
+    ``mesh``, ``x`` is this rank's slab of ``rows`` global rows, and its
+    output rows [a, b) of ``height`` are R_h[a:b] applied to the input rows
+    they weight."""
     rw = _interp_matrix(width, x.shape[3], x.dtype, x.device)
+    if not is_spatial(mesh):
+        rh = _interp_matrix(height, x.shape[2], x.dtype, x.device)
+        return torch.matmul(torch.matmul(rh, x), rw.t())
+    windows = windows_of(height, mesh.space_size,
+                         lambda a, b: _interp_window(height, rows, a, b))
+    a, b = owned_rows(height, mesh)
+    lo, hi = windows[mesh.space_index]
+    rh = _interp_matrix(height, rows, x.dtype, x.device)[a:b, lo:hi]
+    x = gather_rows(x, mesh, rows, windows)
     return torch.matmul(torch.matmul(rh, x), rw.t())

@@ -8,7 +8,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from radar_depth_tpu_torch.models.layers import Conv2d, make_norm, max_pool_torch
+from radar_depth_tpu_torch.models.layers import (
+    Conv2d,
+    make_norm,
+    max_pool_torch,
+    pool_rows,
+)
 
 STAGE_SIZES = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3)}
 BOTTLENECK_EXPANSION = 4  # torchvision Bottleneck: output = 4 * planes
@@ -32,6 +37,15 @@ class BasicBlock(nn.Module):
         if self.has_downsample:
             self.downsample_conv = Conv2d(cin, features, 1, stride, **conv)
             self.downsample_bn = make_norm(features, device)
+
+    def plan_rows(self, h: int) -> int:
+        """Record the global heights of the block's ops (spatial mode);
+        returns the output's."""
+        h1 = self.bn1.plan_rows(self.conv1.plan_rows(h))
+        self.bn2.plan_rows(self.conv2.plan_rows(h1))
+        if self.has_downsample:
+            self.downsample_bn.plan_rows(self.downsample_conv.plan_rows(h))
+        return h1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.bn1(self.conv1(x), relu=True)
@@ -63,6 +77,14 @@ class Bottleneck(nn.Module):
             self.downsample_conv = Conv2d(cin, out, 1, stride, **conv)
             self.downsample_bn = make_norm(out, device)
 
+    def plan_rows(self, h: int) -> int:
+        h1 = self.bn1.plan_rows(self.conv1.plan_rows(h))
+        h2 = self.bn2.plan_rows(self.conv2.plan_rows(h1))
+        self.bn3.plan_rows(self.conv3.plan_rows(h2))
+        if self.has_downsample:
+            self.downsample_bn.plan_rows(self.downsample_conv.plan_rows(h))
+        return h2
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.bn1(self.conv1(x), relu=True)
         y = self.bn2(self.conv2(y), relu=True)
@@ -84,6 +106,8 @@ class ResNetEncoder(nn.Module):
             raise ValueError(f"ResNet depth {depth}: expected one of "
                              f"{sorted(STAGE_SIZES)}")
         self.in_channels = in_channels
+        self.mesh = None  # of the max pool, in spatial mode (use_mesh)
+        self.pool_rows = None  # the pool's global input height
         self.conv1 = Conv2d(in_channels, WIDTH, 7, 2, 3, dtype=dtype,
                             param_dtype=param_dtype, device=device)
         self.bn1 = make_norm(WIDTH, device)
@@ -101,6 +125,13 @@ class ResNetEncoder(nn.Module):
                 self.block_names.append(name)
                 cin = features * exp
         self.out_channels = cin
+
+    def plan_rows(self, h: int) -> int:
+        self.pool_rows = self.bn1.plan_rows(self.conv1.plan_rows(h))
+        h = pool_rows(self.pool_rows)
+        for name in self.block_names:
+            h = getattr(self, name).plan_rows(h)
+        return h
 
     def stem_conv(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[1] != self.in_channels:
@@ -120,4 +151,5 @@ class ResNetEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.stem_finish(self.stem_conv(x))
-        return self.body(max_pool_torch(y, 3, 2, 1))
+        return self.body(max_pool_torch(y, 3, 2, 1, self.mesh,
+                                        self.pool_rows))

@@ -21,6 +21,12 @@ Without a distributed environment (no ``RANK`` / ``WORLD_SIZE``, as
 ``torchrun`` sets them) ``make_mesh`` returns a world-1 mesh with no process
 group: the steps then run exactly their single-process code, with no
 collective.
+
+``make_spatial_mesh`` lays the ranks out as (data, space), JAX's
+``make_spatial_mesh``: the batch splits over ``data`` only, and the ranks of
+one space group hold the same samples, each a slab of the image rows
+(``parallel/spatial.py``). Reductions over the batch still span the world,
+since the slabs partition the pixels.
 """
 
 from __future__ import annotations
@@ -49,10 +55,13 @@ COLLECTIVES: collections.Counter = collections.Counter()
 class DataMesh:
     """This process's place in the data mesh. ``group`` is the process
     group of the collectives, None for a world-1 mesh without one.
-    ``axis_names`` and ``shape`` describe the layout (``("data",)`` or
-    ``("replica", "data")``); the batch splits over all axes and every
-    reduction spans the whole world, so the layout does not change the
-    numbers."""
+    ``axis_names`` and ``shape`` describe the layout (``("data",)``,
+    ``("replica", "data")`` or ``("data", "space")``). The batch splits
+    over every axis but ``space``, and every reduction over the batch spans
+    the whole world, so a layout without ``space`` does not change the
+    numbers. With ``space_size`` S > 1, rank r sits at (r // S, r % S):
+    ``space_group`` holds the S ranks of its data index, which share its
+    samples, and ``data_group`` the ranks of its space index."""
 
     rank: int = 0
     world: int = 1
@@ -62,10 +71,25 @@ class DataMesh:
     shape: Tuple[int, ...] = (1,)
     backend: Optional[str] = None
     created: bool = False  # make_mesh initialised the default group
+    space_size: int = 1
+    space_group: Any = None
+    data_group: Any = None
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    @property
+    def data_size(self) -> int:
+        return self.world // self.space_size
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.space_size
+
+    @property
+    def space_index(self) -> int:
+        return self.rank % self.space_size
 
     def barrier(self) -> None:
         if not is_distributed(self):
@@ -145,16 +169,29 @@ def make_mesh_2d(outer: int, inner: int, platform: str = "default",
                                shape=(outer, inner))
 
 
-def make_spatial_mesh(spatial: int, *args, **kw):
-    raise NotImplementedError(
-        f"spatial partitioning (--spatial {spatial}) is not ported to "
-        "radar_depth_tpu_torch (ROADMAP Queue A item 5)")
-
-
-def spatial_constraint(prepared: Dict, mesh):
-    raise NotImplementedError(
-        "spatial partitioning (--spatial) is not ported to "
-        "radar_depth_tpu_torch (ROADMAP Queue A item 5)")
+def make_spatial_mesh(spatial: int, platform: str = "default",
+                      **kw) -> DataMesh:
+    """The (data, space) layout of the world (JAX's ``make_spatial_mesh``):
+    shape (world // spatial, spatial), rank r at (r // spatial, r %
+    spatial). Image height is sharded over ``space``
+    (``parallel/spatial.py``), the batch over ``data``. Every rank makes
+    every subgroup, in the same order: the space groups, then the data
+    groups. ``kw`` goes to ``make_mesh``."""
+    mesh = make_mesh(platform, **kw)
+    if spatial < 1 or mesh.world % spatial:
+        destroy_mesh(mesh)
+        raise ValueError(
+            f"spatial={spatial} must divide the world size {mesh.world} "
+            f"(run under torchrun with a multiple of {spatial} ranks)")
+    data = mesh.world // spatial
+    space_groups = [dist.new_group([d * spatial + s for s in range(spatial)])
+                    for d in range(data)]
+    data_groups = [dist.new_group([d * spatial + s for d in range(data)])
+                   for s in range(spatial)]
+    return dataclasses.replace(
+        mesh, axis_names=("data", "space"), shape=(data, spatial),
+        space_size=spatial, space_group=space_groups[mesh.rank // spatial],
+        data_group=data_groups[mesh.rank % spatial])
 
 
 def destroy_mesh(mesh: Optional[DataMesh]) -> None:
@@ -165,12 +202,13 @@ def destroy_mesh(mesh: Optional[DataMesh]) -> None:
 
 def check_batch_sizes(mesh: DataMesh, **sizes: int) -> None:
     """The JAX Trainer's check: each global batch size (0 = unset) must
-    split evenly over the ranks."""
+    split evenly over the data axis."""
+    n = mesh.data_size
     for name, bs in sizes.items():
-        if bs and bs % mesh.world != 0:
+        if bs and bs % n != 0:
             raise ValueError(
-                f"{name}={bs} is not divisible by the {mesh.world}-rank "
-                f"data mesh — pick a multiple of {mesh.world} (each rank "
+                f"{name}={bs} is not divisible by the {n}-rank "
+                f"data mesh — pick a multiple of {n} (each rank "
                 "takes an equal share of the batch)")
 
 
@@ -178,13 +216,14 @@ def check_batch_sizes(mesh: DataMesh, **sizes: int) -> None:
 
 
 def local_rows(batch, mesh: Optional[DataMesh], accum: bool = False):
-    """This rank's rows of a global batch: rows ``[r*b, (r+1)*b)`` of dim 0
-    (dim 1 with ``accum``: leaves stacked (grad_accum, batch, ...)), b the
-    global rows over the world size; the counterpart of
+    """This rank's rows of a global batch: rows ``[d*b, (d+1)*b)`` of dim 0
+    (dim 1 with ``accum``: leaves stacked (grad_accum, batch, ...)), d the
+    rank's data index and b the global rows over the data axis's size (the
+    ranks of a space group take the same rows); the counterpart of
     ``shard_batch(process_local=True)``. ``batch`` is a dict, list or tuple
-    of arrays or tensors, or one of them (None stays None). World 1 returns
-    ``batch``."""
-    if mesh is None or mesh.world == 1 or batch is None:
+    of arrays or tensors, or one of them (None stays None). A data axis of
+    1 returns ``batch``."""
+    if mesh is None or mesh.data_size == 1 or batch is None:
         return batch
     if isinstance(batch, dict):
         return {k: local_rows(v, mesh, accum) for k, v in batch.items()}
@@ -192,10 +231,10 @@ def local_rows(batch, mesh: Optional[DataMesh], accum: bool = False):
         return type(batch)(local_rows(v, mesh, accum) for v in batch)
     dim = 1 if accum else 0
     n = batch.shape[dim]
-    if n % mesh.world:
-        raise ValueError(f"{n} rows do not split over {mesh.world} ranks")
-    b = n // mesh.world
-    rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+    if n % mesh.data_size:
+        raise ValueError(f"{n} rows do not split over {mesh.data_size} ranks")
+    b = n // mesh.data_size
+    rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
     return batch[rows] if dim == 0 else batch[:, rows]
 
 
@@ -220,27 +259,45 @@ def pad_batch_to(batch: Dict, size: int):
 # ---------------------------------------------------------- collectives
 
 
-def _all_reduce(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
-    COLLECTIVES["all_reduce"] += 1
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
+def _all_reduce(t: torch.Tensor, mesh: DataMesh, group: Any = None,
+                kind: str = "all_reduce") -> torch.Tensor:
+    """SUM all-reduce of ``t`` in place over ``group`` (default: the
+    world), counted under ``kind``."""
+    COLLECTIVES[kind] += 1
+    dist.all_reduce(t, op=dist.ReduceOp.SUM,
+                    group=mesh.group if group is None else group)
     return t
 
 
 def all_reduce_sum(tensors: Sequence[torch.Tensor], mesh: Optional[DataMesh],
-                   dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
+                   dtype: Optional[torch.dtype] = None,
+                   group: Any = None) -> List[torch.Tensor]:
     """The sums over ranks of ``tensors`` (no gradient), through one buffer
-    in ``dtype`` (default: the first tensor's) and one collective; each
-    comes back in its own shape and dtype. Without a group: ``tensors``."""
+    in ``dtype`` (default: the first tensor's) and one collective over
+    ``group`` (default: the world); each comes back in its own shape and
+    dtype. Without a group: ``tensors``."""
     if not is_distributed(mesh):
         return list(tensors)
     dtype = dtype or tensors[0].dtype
     flat = torch.cat([t.detach().reshape(-1).to(dtype) for t in tensors])
-    _all_reduce(flat, mesh)
+    _all_reduce(flat, mesh, group)
     out, i = [], 0
     for t in tensors:
         out.append(flat[i:i + t.numel()].view(t.shape).to(t.dtype))
         i += t.numel()
     return out
+
+
+def gather_batch(x: torch.Tensor, mesh: Optional[DataMesh]) -> torch.Tensor:
+    """The global batch (dim 0) on every rank of a data group, from each
+    data rank's ``local_rows``: one all-reduce of a zero-filled buffer over
+    ``mesh.data_group`` (no gradient). ``x`` itself on a data axis of 1."""
+    if not is_distributed(mesh) or mesh.data_size == 1:
+        return x
+    n = x.shape[0]
+    full = x.new_zeros((n * mesh.data_size,) + tuple(x.shape[1:]))
+    full[mesh.data_index * n:(mesh.data_index + 1) * n] = x.detach()
+    return _all_reduce(full, mesh, mesh.data_group or mesh.group)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -269,16 +326,16 @@ class _GlobalMoments(torch.autograd.Function):
     """``global_moments`` in one autograd node: two all-reduces forward,
     one backward.
 
-    Forward, with w = 1/world: m = w sum_q mean_q, then
-    v = w sum_q (var_q + (mean_q - m)^2). Backward, G_m and G_v the sums
+    Forward, with w_r this rank's share of the global element count
+    (1/world when every rank holds as many): m = sum_q w_q mean_q, then
+    v = sum_q w_q (var_q + (mean_q - m)^2). Backward, G_m and G_v the sums
     over ranks of the upstream gradients of m and v (one all-reduce of the
-    pair): dvar_r = w G_v and dmean_r = w (G_m + 2 (mean_r - m) G_v). The
-    path of m through v is left out: its gradient is
-    -2 w G_v sum_q (mean_q - m), which is 0."""
+    pair): dvar_r = w_r G_v and dmean_r = w_r (G_m + 2 (mean_r - m) G_v).
+    The path of m through v is left out: its gradient is
+    -2 G_v sum_q w_q (mean_q - m), which is 0."""
 
     @staticmethod
-    def forward(ctx, mean, var, mesh):
-        w = 1.0 / mesh.world
+    def forward(ctx, mean, var, mesh, w):
         gmean = _all_reduce(mean * w, mesh)
         dev = mean - gmean
         gvar = _all_reduce(torch.addcmul(var, dev, dev) * w, mesh)
@@ -292,19 +349,24 @@ class _GlobalMoments(torch.autograd.Function):
         g_mean, g_var = _all_reduce(torch.stack([g_mean, g_var]),
                                     ctx.mesh).unbind(0)
         d_mean = torch.addcmul(g_mean, dev, g_var, value=2.0) * ctx.w
-        return d_mean, g_var * ctx.w, None
+        return d_mean, g_var * ctx.w, None, None
 
 
-def global_moments(mean: torch.Tensor, var: torch.Tensor, mesh: DataMesh):
-    """Global-batch (mean, biased variance) from each rank's own, every
-    rank holding the same number of rows (``local_rows``): the mean of the
-    ranks' means, then the mean of ``var_r + (mean_r - mean)^2`` over ranks,
+def global_moments(mean: torch.Tensor, var: torch.Tensor, mesh: DataMesh,
+                   share: Optional[float] = None):
+    """Global-batch (mean, biased variance) from each rank's own: the
+    ranks' means weighted by ``share``, this rank's fraction of the global
+    element count (default 1/world: every rank holds as many rows, as
+    ``local_rows`` splits them; a row slab of ``parallel/spatial.py`` may
+    hold fewer), then the weighted mean of ``var_r + (mean_r - mean)^2``,
     which is sum (x - mean)^2 / N over the global batch; differentiable,
     through three all-reduces (two forward, one backward). Each rank's
     moments come from its own two-pass ``var_mean``, so the variance keeps
     the digits of a two-pass one, and at world 1 the result and its
-    gradients have the bits of the rank's own moments."""
-    return _GlobalMoments.apply(mean, var, mesh)
+    gradients have the bits of the rank's own moments. A share computed as
+    n_r / N is 1/world to the bit when the counts are equal."""
+    return _GlobalMoments.apply(mean, var, mesh,
+                                1.0 / mesh.world if share is None else share)
 
 
 # ------------------------------------------------------- model replicas

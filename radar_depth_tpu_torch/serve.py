@@ -267,7 +267,8 @@ def main(argv: Optional[list] = None) -> int:
                         "single-flight)")
     p.add_argument("--spatial", type=int, default=1,
                    help="serve over a (data, space) mesh, image height "
-                        "sharded over this many devices (not ported)")
+                        "sharded over this many ranks (not ported to the "
+                        "daemon)")
     p.add_argument("--platform", default="default", choices=["default", "cpu"],
                    help="'default' serves on the CUDA card (and fails "
                         "without one); 'cpu' serves on the CPU")
@@ -276,9 +277,12 @@ def main(argv: Optional[list] = None) -> int:
     from radar_depth_tpu_torch.device import resolve_device
     from radar_depth_tpu_torch.inference import Predictor
 
+    if args.spatial > 1:
+        raise NotImplementedError(
+            f"--spatial {args.spatial}: the daemon serves from one process; "
+            "serving over ranks is not ported (ROADMAP Queue A item 6)")
     device = resolve_device("cpu" if args.platform == "cpu" else None)
-    overrides = {"spatial": args.spatial} if args.spatial > 1 else {}
-    predictor = Predictor.from_run(args.run, device=device, **overrides)
+    predictor = Predictor.from_run(args.run, device=device)
     srv = DepthServer(predictor, max_tile=args.max_tile,
                       batch_window_ms=args.batch_window_ms)
     print(f"serving {args.run} on http://{args.host}:{args.port} "

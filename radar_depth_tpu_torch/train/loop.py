@@ -18,6 +18,11 @@ replicas stay bit-equal, which the end of a run checks. Rank 0 alone
 writes the run directory (lock, config.json, CSVs, best.txt, checkpoints,
 TensorBoard, panels) and prints.
 
+Spatial partitioning (``--spatial S``, ``parallel/spatial.py``): the ranks
+form a (data, space) mesh of world // S by S (``make_spatial_mesh``); the
+batch sizes split over the data axis, the S ranks of a space group read
+the same rows and each runs its slab of image rows through the model.
+
 Timing fields keep the reference's Result.data_time / gpu_time: data_time is
 the host's batch assembly per step, gpu_time the device time per step, read
 at the sync points as (window wall - window host time) / steps, since the
@@ -67,6 +72,7 @@ from radar_depth_tpu_torch.parallel.mesh import (
     destroy_mesh,
     local_rows,
     make_mesh,
+    make_spatial_mesh,
     pad_batch_to,
 )
 from radar_depth_tpu_torch.train import checkpoint as ckpt_lib
@@ -198,6 +204,23 @@ def _add(acc, new):
     return new if acc is None else {k: acc[k] + new[k] for k in acc}
 
 
+def check_spatial(cfg: TrainConfig) -> None:
+    """The JAX Trainer's checks of ``--spatial``, with its messages: the
+    H/32 bottleneck at least 3 rows (where GSPMD mis-partitioned the
+    backward; the port's exchange is exact there, and keeps the limit so
+    both packages take the same runs), and the height divisible by the
+    space axis."""
+    if cfg.data.height // 32 < 3:
+        raise ValueError(
+            f"--spatial requires height >= 96 (got {cfg.data.height}"
+            "): bottleneck feature maps shorter than 3 rows "
+            "mis-partition the backward pass")
+    if cfg.data.height % cfg.spatial:
+        raise ValueError(
+            f"height={cfg.data.height} is not divisible by "
+            f"--spatial {cfg.spatial}")
+
+
 class Trainer:
     """Builds the model, optimizer, mesh and data once, runs epochs (the
     reference's main.py::main), on the card unless ``cfg.platform`` is
@@ -206,8 +229,12 @@ class Trainer:
     def __init__(self, cfg: TrainConfig):
         require_ported(cfg)
         self.cfg = cfg
-        self.mesh = make_mesh("cpu" if cfg.platform == "cpu" else "default",
-                              axis=cfg.mesh_axis)
+        platform = "cpu" if cfg.platform == "cpu" else "default"
+        if cfg.spatial > 1:
+            check_spatial(cfg)
+            self.mesh = make_spatial_mesh(cfg.spatial, platform)
+        else:
+            self.mesh = make_mesh(platform, axis=cfg.mesh_axis)
         self.device = self.mesh.device
         self._main = self.mesh.is_main
         check_batch_sizes(self.mesh, batch_size=cfg.batch_size,
@@ -505,7 +532,7 @@ class Trainer:
             if (viz and self._main and i % cfg.val_viz_every == 0
                     and len(viz_batches) < 8):
                 viz_batches.append({k: v[:1] for k, v in batch.items()})
-            if self.mesh.world > 1:
+            if self.mesh.data_size > 1:
                 batch = local_rows(pad_batch_to(batch, ebs)[0], self.mesh)
             batch = self._upload(batch)
             t1 = time.perf_counter()

@@ -42,7 +42,10 @@ def run(argv=None) -> Dict:
         f"{'in the loader threads' if trainer.host_augment else 'in the step'}"
         f"; device {trainer.device}"
         + (f"; {trainer.mesh.world} ranks ({trainer.mesh.backend})"
-           if trainer.mesh.group is not None else ""))
+           if trainer.mesh.group is not None else "")
+        + (f", data {trainer.mesh.data_size} x space "
+           f"{trainer.mesh.space_size}" if trainer.mesh.space_size > 1
+           else ""))
     if cfg.evaluate:
         try:
             trainer.load_for_evaluate()

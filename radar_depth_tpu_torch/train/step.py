@@ -24,6 +24,13 @@ its share of the loss and one SUM all-reduce per optimizer step adds the
 gradients over ranks. The returned loss and sums are the global batch's,
 the same on every rank. Without a group the steps are the single-process
 code, with no collective.
+
+A mesh with a space axis (``parallel/mesh.py::make_spatial_mesh``) splits
+the batch over its data axis only; each rank prepares its samples at full
+height (kernel C z-buffers once per rank), keeps its slab of rows of every
+NHWC leaf (``parallel/spatial.py::spatial_constraint``) and runs the model
+on slabs, the ops along H exchanging halos. Losses, metrics and BN
+statistics still reduce over the world, whose slabs partition the pixels.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from radar_depth_tpu_torch.parallel.mesh import (
     is_distributed,
     local_rows,
 )
+from radar_depth_tpu_torch.parallel.spatial import spatial_constraint
 from radar_depth_tpu_torch.train.state import TrainState
 
 
@@ -93,7 +101,7 @@ def _loss_and_pred(out, target, cfg: TrainConfig, spec: ArchSpec, rgb=None,
         pred = out[1]
         if rgb is not None and cfg.model.blend_tau > 0:
             pred = blend_by_brightness(out[0], out[1], rgb,
-                                       cfg.model.blend_tau)
+                                       cfg.model.blend_tau, mesh)
     else:
         loss = get_loss(cfg.optim.criterion)(out, target, mesh)
         pred = out
@@ -106,7 +114,7 @@ def _global_draws(batch: Dict, pre: PreprocessConfig, mesh, device,
     global batch's; missing ones are drawn for the global batch from
     ``generator``, as the single-process step draws them, so N ranks draw
     what one rank draws. Returns what the preprocessing takes."""
-    n = next(iter(batch.values())).shape[0] * mesh.world
+    n = next(iter(batch.values())).shape[0] * mesh.data_size
     if pre.sparsifier != "none":
         if sparse_u is None and generator is not None:
             # ops/sparsify.py::draw_uniform over the global target's shape
@@ -164,6 +172,7 @@ def make_micro_grad_fn(model: torch.nn.Module, spec: ArchSpec,
         else:
             prepared = prepare_train_batch(batch, pre, aug_params, generator,
                                            _device(model), plain, sparse_u)
+        prepared = spatial_constraint(prepared, mesh)
         target = prepared["target"]
         out = model(*pack_model_inputs(prepared, spec.input_kind,
                                        cfg.model.modality))
@@ -257,7 +266,7 @@ def make_eval_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
 
     @torch.no_grad()
     def eval_step(batch: Dict) -> Dict:
-        use_plain_kernels(model.eval(), plain)
+        use_mesh(use_plain_kernels(model.eval(), plain), mesh)
         dev = _device(model)
         sparse_u = None
         if mesh is not None and pre.sparsifier != "none":
@@ -265,7 +274,8 @@ def make_eval_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
             _, sparse_u = _global_draws(
                 batch, pre, mesh, dev, None,
                 torch.Generator(device=dev).manual_seed(0), None, False)
-        prepared = prepare_eval_batch(batch, pre, dev, plain, sparse_u)
+        prepared = spatial_constraint(
+            prepare_eval_batch(batch, pre, dev, plain, sparse_u), mesh)
         out = model(*pack_model_inputs(prepared, spec.input_kind,
                                        cfg.model.modality))
         loss, pred = _loss_and_pred(out, prepared["target"], cfg, spec,
@@ -282,14 +292,15 @@ def make_predict_fn(model: torch.nn.Module, spec: ArchSpec,
                     cfg: TrainConfig) -> Callable:
     """``predict(batch) -> {rgb, radar, target, pred}``, all (B, H, W, .)
     on the device: the eval preprocessing and the eval-mode forward, with the
-    served output (``blend_tau``), for the comparison panels."""
+    served output (``blend_tau``), for the comparison panels; in this
+    process alone, whatever mesh the model's steps use."""
     pre = make_preprocess_config(cfg)
 
     @torch.no_grad()
     def predict(batch: Dict) -> Dict[str, torch.Tensor]:
         prepared = prepare_eval_batch(batch, pre, _device(model))
-        out = model.eval()(*pack_model_inputs(prepared, spec.input_kind,
-                                              cfg.model.modality))
+        out = use_mesh(model.eval(), None)(*pack_model_inputs(
+            prepared, spec.input_kind, cfg.model.modality))
         _, pred = _loss_and_pred(out, prepared["target"], cfg, spec,
                                  rgb=prepared["rgb"])
         return dict(prepared, pred=pred)

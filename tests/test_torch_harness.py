@@ -12,7 +12,7 @@ test_inference.py and test_watchdog.py: resume exactness (bitwise on the
 CPU), checkpoint retention and restore paths, the stale-save sweep, the run
 lock, --ckpt-every, --init-from and --stage1-path, per-split validation,
 the watchdog's heartbeat, Predictor.from_run, a stage2_coarse Predictor,
-and --spatial, the one setting not ported, raising NotImplementedError."""
+and --spatial in one process, asking for torchrun ranks."""
 
 import csv
 import dataclasses
@@ -574,15 +574,16 @@ UNPORTED = [(["--decoder", "deconv2"], "item 9"),
             (["--remat"], "item 9"),
             (["--stage2-coarse"], "item 9"),
             (["--pretrained", "w.pth"], "item 9"),
-            (["--spatial", "2"], "Queue A item 5")]
+            (["--spatial", "2"], "torchrun")]
 
 
 @pytest.mark.parametrize("extra,item", UNPORTED,
                          ids=[" ".join(a) for a, _ in UNPORTED])
 def test_unported_settings_raise(tmp_path, extra, item):
-    """--spatial (ROADMAP Queue A item 5) parses, and building the Trainer with it
-    raises NotImplementedError naming the item, before the output dir is
-    made. The settings that item 9 ported (archs, decoders, --sparsifier,
+    """--spatial 2 parses, and building the Trainer with it in one process
+    raises ValueError asking for a multiple of 2 torchrun ranks, before the
+    output dir is made (tests/test_torch_spatial_trainer.py runs it under
+    torchrun). The settings that item 9 ported (archs, decoders, --sparsifier,
     --remat, --stage2-coarse, --pretrained with a torchvision state_dict on
     disk) are no longer reported and build a Trainer."""
     out = tmp_path / "out"
@@ -593,8 +594,8 @@ def test_unported_settings_raise(tmp_path, extra, item):
         extra = [str(tmp_path / a) if a == "w.pth" else a for a in extra]
     argv = ["--arch", "resnet18_multistage", "--platform", "cpu",
             "--output-dir", str(out)] + extra
-    if item == "Queue A item 5":
-        with pytest.raises(NotImplementedError, match=item):
+    if item == "torchrun":
+        with pytest.raises(ValueError, match="multiple of 2 ranks"):
             Trainer(config.parse_command(argv))
         assert not out.exists()
         return

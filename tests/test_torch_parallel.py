@@ -1,7 +1,8 @@
 """The port's data mesh (radar_depth_tpu_torch/parallel/mesh.py) in one
 process: pad_batch_to against the JAX package's, local_rows, the batch-size
 checks, the world-1 mesh without a process group (the Trainer makes none
-without RANK/WORLD_SIZE), the unported spatial mesh, and a gloo group of
+without RANK/WORLD_SIZE), the spatial mesh's refusal of a world it does
+not divide, and a gloo group of
 one rank, whose collectives each return their input so that BN, the losses
 and the metrics through it give the bits of the code without a group. The
 2-rank numbers are tests/test_torch_parallel_steps.py's and
@@ -125,10 +126,15 @@ def test_no_environment_no_group(monkeypatch, tmp_path):
 
 
 def test_spatial_mesh_is_not_ported():
-    for call in (lambda: pm.make_spatial_mesh(2),
-                 lambda: pm.spatial_constraint({}, None)):
-        with pytest.raises(NotImplementedError, match="Queue A item 5"):
-            call()
+    """The spatial mesh is ported (tests/test_torch_spatial.py): without a
+    process group the world of 1 does not split over 2 space ranks, and
+    spatial_constraint without a space axis returns its batch."""
+    with pytest.raises(ValueError, match="multiple of 2 ranks"):
+        pm.make_spatial_mesh(2, "cpu")
+    from radar_depth_tpu_torch.parallel import spatial_constraint
+
+    batch = {"rgb": torch.zeros(1, 4, 6, 3)}
+    assert spatial_constraint(batch, None) is batch
 
 
 def test_collectives_without_a_group_are_identities():

@@ -297,8 +297,9 @@ def test_server_matches_jax_predictor():
 
 def test_main_refuses_spatial_and_a_missing_card(tiny_run, monkeypatch):
     """--spatial 2 parses and raises NotImplementedError naming its ROADMAP
-    item; without --platform cpu and without a card, main raises."""
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+    item (the daemon over ranks); without --platform cpu and without a
+    card, main raises."""
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
         main(["--run", tiny_run, "--spatial", "2", "--platform", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -409,14 +409,15 @@ def test_stage1_graft_widens_stage2_coarse(tmp_path):
 
 
 def test_unported_names_only_spatial():
-    """Every item-9 setting is ported; --spatial alone is reported."""
+    """Every item-9 setting is ported, and --spatial too: nothing is
+    reported."""
     argv = ["--arch", "resnet34_multistage", "--multistage-uncertainty",
             "--decoder", "deconv3", "--stage2-coarse", "--remat",
             "--pretrained", "w.pth", "--sparsifier", "sim_stereo",
             "--modality", "d"]
     assert config.unported(config.parse_command(argv)) == []
     assert config.unported(config.parse_command(argv + ["--spatial", "2"])) \
-        == ["--spatial 2 (ROADMAP Queue A item 5)"]
+        == []
     for arch in config.ARCH_NAMES:
         assert arch in ARCH_REGISTRY
         assert config.unported(config.parse_command(["--arch", arch])) == []
