@@ -46,6 +46,12 @@ Phases, each printing one JSON line:
                  and equal to Predictor.predict; the sorted artifact loaded
                  and checked again in a fresh process that imports only the
                  port; img/s of the artifact beside Predictor.predict (ABBA)
+  ops_api        the public ops (radar_depth_tpu_torch.ops): radar_to_depth_map
+                 at B=8, 5 sweeps, 450x800 with both z-buffer backends, each
+                 bit-equal to plain=True, counted (1 C or 1 A) and timed
+                 beside it; utils.profiling.device_trace (the card by
+                 default) around one served B=8 forward, its trace naming
+                 rdt::scale_bias_relu and rdt::zbuffer_min_depth_sorted
   zoo            the rest of the registry at full width (bfloat16, B=8,
                  seeded random weights), each through Predictor with its
                  kernel B sites per forward checked against the module
@@ -123,6 +129,21 @@ Phases, each printing one JSON line:
                  (c) halo exchanges per forward and per train step, bytes per
                  exchange, host ms of the exchanges, bf16 B=8 step img/s and
                  per-rank peak memory beside the plain step's
+  serve_http_spatial  the HTTP daemon over ranks (serve.py::run_daemon, the
+                 path of `torchrun ... -m radar_depth_tpu_torch.serve
+                 --spatial 2`): two processes sharing card 0 over gloo
+                 (chip_smoke.py --serve-spatial-worker DIR, started by the
+                 phase), a (1, 2) mesh, the float32 flagship of phase
+                 spatial's weights, max_tile 8, window 5 ms; /healthz 503
+                 then 200; one B=8 and eight B=1 requests against the
+                 single-process predict (rel RMSE <= 1e-5); 8 clients x 16
+                 one-sample requests (req/s, p50/p99 beside serve_http's
+                 coalesced numbers; gloo copies through the host: a check,
+                 not a speed); a body the schema check refuses answered 400
+                 and the next one served; SIGINT to rank 0, both ranks exit
+                 0 with equal dispatch counts; per rank kernel C 1 and
+                 kernel B 84 per predict call; the leader's host ms and
+                 bytes per broadcast
 Then the script's wall time, the kernels' summary line (kernel B's with its
 launches per forward for each configuration), nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line;
@@ -908,50 +929,57 @@ class http_server:
             raise AssertionError("serve_forever did not stop")
 
 
+def run_clients(np, url, bodies, per_client, label):
+    """HTTP_CLIENTS clients, client i sending ``bodies[i]`` (one sample)
+    ``per_client`` times in turn: requests/s, p50/p99 ms; every answer a
+    finite (1, H, W) map."""
+    import threading
+
+    lat, bad, lock = [], [], threading.Lock()
+
+    def client(ci):
+        for _ in range(per_client):
+            t0 = time.perf_counter()
+            status, body = http(f"{url}/predict", bodies[ci])
+            dt = time.perf_counter() - t0
+            ok = status == 200
+            if ok:
+                d = npz_depth(np, body)
+                ok = d.shape == (1, H, W) and bool(np.isfinite(d).all())
+            with lock:
+                lat.append(dt)
+                if not ok:
+                    bad.append(status)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(HTTP_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=HTTP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"{label}: a client hung")
+    if bad or len(lat) != HTTP_CLIENTS * per_client:
+        raise AssertionError(f"{label}: {len(lat)} requests, failures {bad}")
+    lat_ms = np.asarray(lat) * 1e3
+    return {"clients": HTTP_CLIENTS, "requests": len(lat), "wall_s": wall,
+            "req_per_s": len(lat) / wall,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99))}
+
+
 def concurrency(np, pred, bodies, window_ms):
     """HTTP_CLIENTS clients, each sending its own one-sample request in
     turn, HTTP_REQUESTS requests in all (scripts/bench_serve_concurrency.py
     for the JAX daemon): requests/s, p50/p99 ms, device dispatches."""
-    import threading
-
     with http_server(pred, window_ms) as (srv, checked, url):
         srv.warmup()
         warm_calls = len(checked.seconds)
-        lat, bad, lock = [], [], threading.Lock()
-
-        def client(ci):
-            for _ in range(HTTP_REQUESTS // HTTP_CLIENTS):
-                t0 = time.perf_counter()
-                status, body = http(f"{url}/predict", bodies[ci])
-                dt = time.perf_counter() - t0
-                ok = status == 200
-                if ok:
-                    d = npz_depth(np, body)
-                    ok = d.shape == (1, H, W) and bool(np.isfinite(d).all())
-                with lock:
-                    lat.append(dt)
-                    if not ok:
-                        bad.append(status)
-
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(HTTP_CLIENTS)]
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=HTTP_TIMEOUT)
-        wall = time.perf_counter() - t0
-        if any(t.is_alive() for t in threads):
-            raise AssertionError(f"window {window_ms} ms: a client hung")
-        if bad or len(lat) != HTTP_REQUESTS:
-            raise AssertionError(f"window {window_ms} ms: {len(lat)} "
-                                 f"requests, failures {bad}")
-        lat_ms = np.asarray(lat) * 1e3
-        return {"window_ms": window_ms, "clients": HTTP_CLIENTS,
-                "requests": len(lat), "wall_s": wall,
-                "req_per_s": len(lat) / wall,
-                "p50_ms": float(np.percentile(lat_ms, 50)),
-                "p99_ms": float(np.percentile(lat_ms, 99)),
+        stats = run_clients(np, url, bodies, HTTP_REQUESTS // HTTP_CLIENTS,
+                            f"window {window_ms} ms")
+        return {"window_ms": window_ms, **stats,
                 "device_dispatches": srv.dispatch_count,
                 "predict_s_total": sum(checked.seconds[warm_calls:])}
 
@@ -1160,6 +1188,76 @@ def phase_export(torch, np, dev, batch, sd, pred):
         shutil.rmtree(tmp, ignore_errors=True)
     del preds
     torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+
+# ------------------------------------------------------------ ops API
+
+OPS_MAX_DEPTH = 80.0  # SampleSpec's, as the drive recipe passes it
+
+
+def phase_ops_api(torch, np, dev, batch, pred):
+    """The public ops on the card: ``ops.radar_to_depth_map`` at B=8, 5
+    sweeps, 450x800 with both z-buffer backends, each bit-equal to its
+    ``plain=True`` path, counted and timed beside it; then
+    ``utils.profiling.device_trace`` (on the card by default) around one
+    served B=8 forward of ``pred``, whose trace must name the operators of
+    kernels B and C."""
+    import glob
+    import shutil
+    import tempfile
+
+    from radar_depth_tpu_torch.ops import radar_to_depth_map
+    from radar_depth_tpu_torch.utils.profiling import annotate, device_trace
+
+    b8 = {k: torch.from_numpy(v[:B_SERVE]).to(dev) for k, v in batch.items()
+          if k.startswith("radar") or k == "intrinsics"}
+    args = (b8["radar_points"], b8["radar_valid"], b8["radar_transform"],
+            b8["intrinsics"], H, W)
+    out = {"phase": "ops_api", "batch": B_SERVE, "hw": [H, W],
+           "sweeps": int(b8["radar_points"].shape[1])}
+    for backend in ("sorted", "scatter"):
+        fn = lambda plain=False: radar_to_depth_map(
+            *args, max_depth=OPS_MAX_DEPTH, backend=backend, plain=plain)
+        torch.cuda.synchronize()
+        reset_launches()
+        got = fn()
+        launches = read_launches()
+        want = fn(plain=True)
+        kernel = KERNELS["C" if backend == "sorted" else "A"]
+        if (launches[kernel] != 1 or sum(launches.values()) != 1
+                or not torch.equal(got, want) or got.shape != (B_SERVE, H, W)):
+            raise AssertionError(f"radar_to_depth_map {backend}: launches "
+                                 f"{launches}, shape {tuple(got.shape)}, "
+                                 "or not bit-equal to plain")
+        out[backend] = {"launches": launches, "bit_equal_to_plain": True,
+                        "set_pixels": int((got > 0).sum()),
+                        "ms": cuda_ms(torch, fn),
+                        "plain_ms": cuda_ms(torch, lambda: fn(plain=True))}
+
+    take = {k: v[:B_SERVE] for k, v in batch.items()}
+    pred.predict(take)
+    tmp = tempfile.mkdtemp(prefix="rdt-trace-")
+    try:
+        with device_trace(tmp):
+            with annotate("served_forward_b8"):
+                pred.predict(take)
+        files = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"device_trace wrote {files}")
+        with open(files[0]) as f:
+            text = f.read()
+        names = {op: text.count(f'"{op}"') for op in (
+            "rdt::scale_bias_relu", "rdt::zbuffer_min_depth_sorted",
+            "served_forward_b8")}
+        out["trace"] = {"bytes": os.path.getsize(files[0]),
+                        "events_named": names}
+        if not all(names.values()):
+            raise AssertionError(f"the trace names {names}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     emit(out)
     return out
 
@@ -2034,12 +2132,17 @@ DP_TIMEOUT_S = 600  # each process that phase data_parallel starts
 DP_BACKEND = "nccl"  # of (a) and (c): one rank on the card
 
 
-def free_port() -> int:
+def free_ports(n: int = 1) -> list:
+    """``n`` distinct free TCP ports of 127.0.0.1 (the sockets are held
+    open together while the ports are picked)."""
+    import contextlib
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    with contextlib.ExitStack() as stack:
+        socks = [stack.enter_context(socket.socket()) for _ in range(n)]
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
 
 
 def run_procs(cmds, env_of, timeout):
@@ -2205,7 +2308,7 @@ def phase_data_parallel(torch, np, dev, batch, tmp):
     out = {"phase": "data_parallel", "batch": B_TRAIN, "steps": DP_STEPS}
 
     # (a) a 1-rank NCCL group: the DP path bit-equal to the plain step
-    mesh = mesh_from_env(free_port())
+    mesh = mesh_from_env(free_ports()[0])
     if (mesh.backend, mesh.world, mesh.device) != (DP_BACKEND, 1, dev):
         raise AssertionError(f"data_parallel mesh {mesh}")
     a, dp_launches = {}, {k: 0 for k in KERNELS.values()}
@@ -2282,7 +2385,7 @@ def phase_data_parallel(torch, np, dev, batch, tmp):
     os.makedirs(root, exist_ok=True)
     torch.save(sd, os.path.join(root, "weights.pt"))
     np.savez(os.path.join(root, "batch.npz"), **b8)
-    port = free_port()
+    port, = free_ports()
     cmd = [sys.executable, os.path.abspath(__file__), "--dp-worker", root]
     t0 = time.perf_counter()
     results = run_procs([cmd, cmd], lambda r: dp_env(r, 2, port),
@@ -2534,7 +2637,7 @@ def phase_spatial(torch, np, dev, batch, tmp):
     torch.save(sd, os.path.join(root, "weights.pt"))
     torch.save(ref_states[0], os.path.join(root, "ref-state-0.pt"))
     np.savez(os.path.join(root, "batch.npz"), **b8)
-    port = free_port()
+    port, = free_ports()
     cmd = [sys.executable, os.path.abspath(__file__), "--spatial-worker",
            root]
     t0 = time.perf_counter()
@@ -2631,6 +2734,200 @@ def phase_spatial(torch, np, dev, batch, tmp):
     return out
 
 
+# ------------------------------------------------- the daemon over ranks
+
+SERVE_SPATIAL_PER_CLIENT = 16  # one-sample requests per client in (c)
+SERVE_SPATIAL_START_S = 600  # the ranks' start and warmup
+SERVE_SPATIAL_EXIT_S = 60  # every rank's exit after SIGINT to rank 0
+
+
+def serve_spatial_worker(root, port) -> int:
+    """One rank of phase serve_http_spatial: two processes on card 0 over
+    gloo, a (1, 2) mesh, the float32 flagship of phase spatial's weights
+    (TF32 off) served through ``serve.run_daemon``, the code path of
+    ``python -m radar_depth_tpu_torch.serve``: rank 0 leads on
+    127.0.0.1:``port``, rank 1 follows. Counts the kernels' launches from
+    the daemon's start to its stop and prints them, with the server's
+    counts, as one JSON line last."""
+    import torch
+
+    from radar_depth_tpu_torch.config import serve_config
+    from radar_depth_tpu_torch.inference import Predictor
+    from radar_depth_tpu_torch.parallel import mesh as pm
+    from radar_depth_tpu_torch.serve import run_daemon
+
+    mesh = pm.make_spatial_mesh(SPATIAL, backend="gloo")  # dp_env
+    sd = torch.load(os.path.join(root, "weights.pt"), map_location="cpu",
+                    weights_only=True)
+    with tf32(torch, False):
+        pred = Predictor(serve_config(train_config("float32")), sd,
+                         mesh=mesh)
+        torch.cuda.synchronize()
+        reset_launches()
+        srv = run_daemon(pred, "127.0.0.1", port, max_tile=SERVE_TILE,
+                         batch_window_ms=HTTP_WINDOW_MS)
+        torch.cuda.synchronize()
+    print(json.dumps({"rank": mesh.rank, "leader": srv.is_leader,
+                      "dispatches": srv.dispatch_count,
+                      "predict_calls": srv.predict_calls,
+                      "launches": read_launches(),
+                      "broadcast": srv.broadcast}), flush=True)
+    pm.destroy_mesh(mesh)
+    return 0
+
+
+def phase_serve_http_spatial(torch, np, dev, batch, tmp, coalesced):
+    """The HTTP daemon over ranks on the card: two processes sharing card 0
+    over gloo (NCCL refuses two ranks on one card), image height sharded
+    over both, the leader on 127.0.0.1 (a correctness check, not a
+    scaling number). ``coalesced``: phase serve_http's numbers, beside."""
+    import signal
+
+    from radar_depth_tpu_torch.config import serve_config
+    from radar_depth_tpu_torch.inference import Predictor
+
+    root = os.path.join(tmp, "spatial")  # phase spatial's weights.pt
+    sd = torch.load(os.path.join(root, "weights.pt"), map_location="cpu",
+                    weights_only=True)
+    take = lambda lo, hi: {k: v[lo:hi] for k, v in batch.items()}
+    with tf32(torch, False):
+        ref_pred = Predictor(serve_config(train_config("float32")), sd,
+                             device=dev)
+        ref8 = ref_pred.predict(take(0, B_SERVE), max_tile=SERVE_TILE)
+        ref1 = [ref_pred.predict(take(i, i + 1), max_tile=SERVE_TILE)
+                for i in range(B_SERVE)]
+    del ref_pred
+    torch.cuda.empty_cache()
+
+    port, master = free_ports(2)
+    url = f"http://127.0.0.1:{port}"
+    cmd = [sys.executable, os.path.abspath(__file__), "--serve-spatial-worker",
+           root, "--http-port", str(port)]
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {"phase": "serve_http_spatial", "space": SPATIAL, "backend": "gloo",
+           "ranks_on_card_0": SPATIAL, "dtype": "float32", "hw": [H, W],
+           "max_tile": SERVE_TILE, "window_ms": HTTP_WINDOW_MS}
+    logs = [(open(os.path.join(root, f"serve{r}.out"), "w+"),
+             open(os.path.join(root, f"serve{r}.err"), "w+"))
+            for r in range(SPATIAL)]
+
+    def tails():
+        text = []
+        for r, (o, e) in enumerate(logs):
+            for f in (o, e):
+                f.flush()
+                f.seek(0)
+            text.append(f"rank {r}:\n{o.read()[-2000:]}\n{e.read()[-4000:]}")
+        return "\n".join(text)
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, cwd=here, env=dp_env(r, SPATIAL, master),
+                              stdout=logs[r][0], stderr=logs[r][1],
+                              start_new_session=True)
+             for r in range(SPATIAL)]
+    try:
+        # (a) /healthz: 503 while the ranks warm up, then 200
+        codes = []
+        deadline = time.monotonic() + SERVE_SPATIAL_START_S
+        while not codes or codes[-1] != 200:
+            if time.monotonic() > deadline or any(p.poll() is not None
+                                                  for p in procs):
+                raise AssertionError(f"healthz {codes[-3:]}:\n{tails()}")
+            try:
+                codes.append(http(f"{url}/healthz")[0])
+            except OSError:  # not bound yet
+                pass
+            time.sleep(0.1)
+        out["ready_s"] = time.perf_counter() - t0
+        out["healthz_503_then_200"] = 503 in codes
+
+        # (b) one B=8 and eight B=1 requests against one process's predict
+        def served(lo, n):
+            status, body = http(f"{url}/predict",
+                                npz_body(np, take(lo, lo + n)))
+            if status != 200:
+                raise AssertionError(f"POST B={n}: {status} {body[:300]!r}")
+            return npz_depth(np, body)
+
+        t1 = time.perf_counter()
+        d8 = served(0, B_SERVE)
+        out["b8_call_ms"] = (time.perf_counter() - t1) * 1e3
+        errs = [rel_rmse(np, d8, ref8)] + [
+            rel_rmse(np, served(i, 1), ref1[i]) for i in range(B_SERVE)]
+        out["rel_rmse_vs_one_process"] = {"b8": errs[0],
+                                          "b1_max": max(errs[1:])}
+        if d8.shape != (B_SERVE, H, W) or max(errs) > PARITY_REL_RMSE_TOL:
+            raise AssertionError(f"served over ranks vs one process: {out}")
+
+        # (c) 8 clients x 16 one-sample requests, coalesced at 5 ms
+        bodies = [npz_body(np, take(i, i + 1)) for i in range(HTTP_CLIENTS)]
+        out["concurrency"] = run_clients(np, url, bodies,
+                                         SERVE_SPATIAL_PER_CLIENT,
+                                         "over ranks")
+        out["concurrency_serve_http_coalesced"] = {
+            k: coalesced[k] for k in ("req_per_s", "p50_ms", "p99_ms",
+                                      "requests")}
+
+        # (d) a body the schema check refuses: 400, and nothing was sent
+        bad = take(0, 1)
+        del bad["intrinsics"]
+        status, resp = http(f"{url}/predict", npz_body(np, bad))
+        error = json.loads(resp).get("error", "") if status == 400 else ""
+        out["bad_request"] = {"status": status, "error": error[:160]}
+        if status != 400 or "batch keys" not in error:
+            raise AssertionError(f"malformed request: {status} {resp[:300]!r}")
+        served(0, 1)
+
+        # (g) SIGINT to rank 0: stop sent, both ranks exit 0
+        t1 = time.perf_counter()
+        os.kill(procs[0].pid, signal.SIGINT)
+        for p in procs:
+            p.wait(timeout=max(1.0, SERVE_SPATIAL_EXIT_S
+                               - (time.perf_counter() - t1)))
+        out["stop_s"] = time.perf_counter() - t1
+        rcs = [p.returncode for p in procs]
+        if rcs != [0] * SPATIAL:
+            raise AssertionError(f"exit codes {rcs}:\n{tails()}")
+        lines = []
+        for o, _ in logs:
+            o.flush()
+            o.seek(0)
+            lines.append(json.loads(o.read().strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        for o, e in logs:
+            o.close()
+            e.close()
+
+    # (e) launches per rank per predict call; (f) the leader's broadcasts;
+    # (g) every follower's dispatches equal to the leader's
+    leader = lines[0]
+    per_call = [{k: v / r["predict_calls"] for k, v in r["launches"].items()}
+                for r in lines]
+    want = {KERNELS["A"]: 0, KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD,
+            KERNELS["C"]: 1}
+    if (not leader["leader"] or any(r["leader"] for r in lines[1:])
+            or any(pc != want for pc in per_call)
+            or any(r["dispatches"] != leader["dispatches"]
+                   or r["predict_calls"] != leader["predict_calls"]
+                   for r in lines[1:])):
+        raise AssertionError(f"serve over ranks: {lines}")
+    bc = leader["broadcast"]
+    out.update({
+        "ranks": lines, "launches_per_rank_per_predict": per_call,
+        "dispatches": leader["dispatches"],
+        "predict_calls": leader["predict_calls"],
+        "broadcast_messages": bc["messages"],
+        "broadcast_ms_per_message": bc["seconds"] * 1e3 / bc["messages"],
+        "broadcast_mb_per_message": bc["bytes"] / bc["messages"] / 1e6,
+        "request_bytes_b8": len(npz_body(np, take(0, B_SERVE)))})
+    emit(out)
+    return out
+
+
 def profile_harness(torch, base, out_dir):
     """Device time and idle share of one harness train epoch (the second:
     the first warms up), native loader with host augmentation, under
@@ -2657,6 +2954,11 @@ def main(argv=None) -> int:
     ap.add_argument("--spatial-worker", metavar="DIR",
                     help="run one rank of phase spatial on the files in DIR "
                          "(the phase starts these itself)")
+    ap.add_argument("--serve-spatial-worker", metavar="DIR",
+                    help="run one rank of phase serve_http_spatial on the "
+                         "files in DIR (the phase starts these itself)")
+    ap.add_argument("--http-port", type=int, default=0,
+                    help="the port of --serve-spatial-worker's leader")
     args = ap.parse_args(argv)
 
     import torch
@@ -2678,6 +2980,8 @@ def main(argv=None) -> int:
         return dp_worker(args.dp_worker)
     if args.spatial_worker:
         return spatial_worker(args.spatial_worker)
+    if args.serve_spatial_worker:
+        return serve_spatial_worker(args.serve_spatial_worker, args.http_port)
 
     dev = torch.device("cuda", 0)
     t_start = t0 = time.perf_counter()
@@ -2712,6 +3016,7 @@ def main(argv=None) -> int:
                                        for k, v in batch.items()})
     serve_http = phase_serve_http(torch, np, pred, batch)
     export = phase_export(torch, np, dev, batch, sd, pred)
+    ops_api = phase_ops_api(torch, np, dev, batch, pred)
     del pred
     torch.cuda.empty_cache()
     zoo, zoo_sites, prof_zoo = phase_zoo(torch, np, dev, batch)
@@ -2732,6 +3037,9 @@ def main(argv=None) -> int:
             torch, np, dev, train["bfloat16"]["img_per_s"], tmp)
         dp = phase_data_parallel(torch, np, dev, batch, tmp)
         spatial = phase_spatial(torch, np, dev, batch, tmp)
+        serve_spatial = phase_serve_http_spatial(
+            torch, np, dev, batch, tmp,
+            serve_http["concurrency"]["coalesced"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2749,6 +3057,7 @@ def main(argv=None) -> int:
          "launches_harness": harness["launches"][KERNELS["A"]],
          "launches_data_parallel": dp["launches"][KERNELS["A"]],
          "launches_export_call": export["scatter"]["launches"][KERNELS["A"]],
+         "launches_ops_api": ops_api["scatter"]["launches"][KERNELS["A"]],
          "max_abs_err": 0.0,
          "ms": serve["ms"], "ms_cold": serve["ms_cold"],
          "ms_back_to_back": serve["ms_back_to_back"],
@@ -2769,6 +3078,9 @@ def main(argv=None) -> int:
          "launches_spatial_rank_forward": [
              r[KERNELS["B"]] for r in spatial["predict"][
                  "launches_per_rank"]],
+         "launches_serve_http_spatial_rank": [
+             r[KERNELS["B"]] for r in serve_spatial[
+                 "launches_per_rank_per_predict"]],
          "launches_serve_http": {
              k: r["launches"][KERNELS["B"]]
              for k, r in serve_http["requests"].items()},
@@ -2797,6 +3109,10 @@ def main(argv=None) -> int:
          "launches_spatial_rank_forward": [
              r[KERNELS["C"]] for r in spatial["predict"][
                  "launches_per_rank"]],
+         "launches_serve_http_spatial_rank": [
+             r[KERNELS["C"]] for r in serve_spatial[
+                 "launches_per_rank_per_predict"]],
+         "launches_ops_api": ops_api["sorted"]["launches"][KERNELS["C"]],
          "launches_serve_http": {
              k: r["launches"][KERNELS["C"]]
              for k, r in serve_http["requests"].items()},
@@ -2825,6 +3141,8 @@ def main(argv=None) -> int:
                        "profile_train": prof_train,
                        "harness": harness, "profile_harness": prof_harness,
                        "data_parallel": dp, "spatial": spatial,
+                       "serve_http_spatial": serve_spatial,
+                       "ops_api": ops_api,
                        "serve_http": serve_http, "export": export,
                        "epilogue_host_us": epi_host,
                        "zoo": zoo, "profile_zoo": prof_zoo,

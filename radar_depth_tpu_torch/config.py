@@ -4,11 +4,11 @@ and command line, and the serving subset ``ServeConfig``.
 
 A ``config.json`` written by either package loads in the other
 (``save_config`` / ``load_config``). Every flag and choice of the JAX CLI
-parses here and runs in the Trainer and ``Predictor.from_run``;
-``require_ported`` (called by both) raises ``NotImplementedError`` naming
-the ROADMAP item of any setting that would not, and finds none.
-``--spatial S`` runs under ``torchrun`` with a multiple of S ranks
-(``parallel/spatial.py``).
+parses here and runs in the Trainer, ``Predictor.from_run`` and the HTTP
+daemon (``serve.py``); ``require_ported`` (called by the first two)
+raises ``NotImplementedError`` naming the ROADMAP item of any setting that
+would not, and finds none. ``--spatial S`` runs under ``torchrun`` with a
+multiple of S ranks (``parallel/spatial.py``), in training and in serving.
 
 Data parallelism takes no flag, as in the JAX CLI (which takes every
 visible device): ``torchrun``'s environment makes the mesh
@@ -192,8 +192,8 @@ class TrainConfig:
 
 def unported(cfg: TrainConfig) -> List[str]:
     """The settings of ``cfg`` that the Trainer and ``Predictor.from_run``
-    do not run yet, each with the ROADMAP item that ports it: none. (The
-    HTTP daemon checks its own: ``serve.py``.)"""
+    (and so the HTTP daemon) do not run yet, each with the ROADMAP item
+    that ports it: none."""
     return []
 
 

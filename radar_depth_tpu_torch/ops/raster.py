@@ -1,6 +1,7 @@
 """Sparse-depth rasterization and multi-sweep accumulation on tensors.
 
-Mirrors ``radar_depth_tpu/ops/raster.py``: points ride in fixed-size padded
+Mirrors ``radar_depth_tpu/ops/raster.py``, ``radar_to_depth_map`` and
+``depth_map_to_points`` included: points ride in fixed-size padded
 buffers with validity masks; ``bin_points`` is the one binning rule (int32
 floor, half-open image bounds, open depth range). Two z-buffer backends
 follow it, as in the JAX package: "sorted" (``sort_points_by_pixel``, then
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from radar_depth_tpu_torch.ops import kernels
-from radar_depth_tpu_torch.ops.geometry import se3_apply
+from radar_depth_tpu_torch.ops.geometry import project_points, se3_apply
 
 
 def bin_points(uv: torch.Tensor, z: torch.Tensor, valid: torch.Tensor,
@@ -121,3 +122,53 @@ def extend_height(uv: torch.Tensor, z: torch.Tensor, valid: torch.Tensor,
     return (uv_ext.reshape(lead + (p * j, 2)),
             z[..., None].expand(z.shape + (j,)).reshape(lead + (p * j,)),
             valid[..., None].expand(valid.shape + (j,)).reshape(lead + (p * j,)))
+
+
+def radar_to_depth_map(sweep_points: torch.Tensor, sweep_valid: torch.Tensor,
+                       T_cam_from_sensor: torch.Tensor, K: torch.Tensor,
+                       height: int, width: int, min_depth: float = 0.0,
+                       max_depth: float = 100.0, height_extension: int = 0,
+                       backend: str = "sorted",
+                       plain: bool = False) -> torch.Tensor:
+    """Multi-sweep radar -> sparse depth map, the JAX package's function
+    with its defaults: ``accumulate_sweeps``, ``project_points``, with
+    ``height_extension`` > 0 ``extend_height`` by ``-he..he`` rows, then
+    ``rasterize_min_depth`` (``backend`` and ``plain`` passed on: kernel C
+    or kernel A on the card, their plain versions on the CPU).
+
+    (..., S, P, 3) sensor-frame points, (..., S, P) masks, (..., S, 4, 4)
+    cam<-sensor chains and (..., 3, 3) intrinsics -> (..., height, width)
+    float32."""
+    pts_cam, valid = accumulate_sweeps(sweep_points, sweep_valid,
+                                       T_cam_from_sensor)
+    uv, z = project_points(pts_cam, K)
+    if height_extension > 0:
+        offsets = torch.arange(-height_extension, height_extension + 1,
+                               device=uv.device)
+        uv, z, valid = extend_height(uv, z, valid, offsets)
+    return rasterize_min_depth(uv, z, valid, height, width,
+                               min_depth=min_depth, max_depth=max_depth,
+                               backend=backend, plain=plain)
+
+
+def depth_map_to_points(depth: torch.Tensor, max_points: int):
+    """Inverse of rasterization: up to ``max_points`` (u, v) pixel
+    coordinates and depths of the set (> 0) pixels of (..., H, W) maps,
+    padded and masked: (..., N, 2) float32 uv, (..., N) z and (..., N) bool
+    valid. The set pixels come first in row-major order, then the padding:
+    the unset pixels, also in row-major order. That is the order of JAX's
+    ``lax.top_k`` over the 0/1 score, which keeps the lower index first
+    among equal scores; a stable descending sort gives it (``torch.topk``
+    does not promise an order among ties)."""
+    h, w = depth.shape[-2], depth.shape[-1]
+    if max_points > h * w:
+        raise ValueError(f"max_points={max_points} > the {h}x{w} map's "
+                         f"{h * w} pixels")
+    flat = depth.reshape(depth.shape[:-2] + (h * w,))
+    score = (flat > 0).to(torch.float32)
+    idx = torch.sort(score, dim=-1, descending=True,
+                     stable=True).indices[..., :max_points]
+    z = torch.gather(flat, -1, idx)
+    uv = torch.stack([(idx % w).to(torch.float32),
+                      (idx // w).to(torch.float32)], dim=-1)
+    return uv, z, z > 0

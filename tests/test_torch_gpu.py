@@ -211,3 +211,38 @@ def test_export_load_on_card(tmp_path):
     assert kernels.scale_bias_relu.launches == 84
     assert kernels.zbuffer_min_depth_sorted.launches == 1
     np.testing.assert_array_equal(got, pred.predict(batch))
+
+
+@pytest.mark.gpu
+def test_ops_build_at_first_use_on_card():
+    """ops.radar_to_depth_map on the card, in a fresh process: importing
+    the ops loads no kernel library; the first call loads kernel C's (and
+    builds it from its source if that source's build is not on disk), and
+    both backends are bit-equal to their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import torch\n"
+        "from radar_depth_tpu_torch.data import SampleSpec\n"
+        "from radar_depth_tpu_torch.data import SyntheticNuScenes\n"
+        "from radar_depth_tpu_torch.ops import kernels, radar_to_depth_map\n"
+        "assert kernels._LIBS == {}\n"
+        "b = SyntheticNuScenes(2, spec=SampleSpec(height=90, width=160), "
+        "seed=1).batch(range(2))\n"
+        "args = [torch.from_numpy(b[k]).cuda() for k in ('radar_points', "
+        "'radar_valid', 'radar_transform', 'intrinsics')] + [90, 160]\n"
+        "for backend, lib in (('sorted', 'zbuffer_sorted'), "
+        "('scatter', 'zbuffer')):\n"
+        "    assert lib not in kernels._LIBS\n"
+        "    got = radar_to_depth_map(*args, backend=backend)\n"
+        "    assert lib in kernels._LIBS\n"
+        "    want = radar_to_depth_map(*args, backend=backend, plain=True)\n"
+        "    assert torch.equal(got, want) and (got > 0).sum() > 10\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600,
+                          cwd=str(Path(__file__).resolve().parent.parent))
+    assert proc.returncode == 0, proc.stdout + proc.stderr

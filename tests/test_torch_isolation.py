@@ -26,7 +26,10 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    assert "radar_depth_tpu_torch.ops.kernels" in mods
+    assert {"radar_depth_tpu_torch.ops.kernels",
+            "radar_depth_tpu_torch.ops.raster",
+            "radar_depth_tpu_torch.serve",
+            "radar_depth_tpu_torch.utils.profiling"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

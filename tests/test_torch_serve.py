@@ -183,6 +183,13 @@ def test_oversized_coalesced_request_is_served(tiny_run):
         srv.predict_npz(npz(big))
 
 
+def one_sample_body(cfg) -> bytes:
+    """A valid one-sample request for a predictor of ``cfg``: the daemon
+    checks every body against the schema before a predictor sees it."""
+    return npz(SyntheticNuScenes(1, spec=cfg.sample_spec(),
+                                 seed=1).batch([0]))
+
+
 class _GatedPredictor:
     """A predictor whose predict waits for ``gate``: it holds the
     dispatcher so that later requests stay queued."""
@@ -221,7 +228,7 @@ def test_every_predict_runs_on_one_device_thread(window_ms):
     srv = DepthServer(pred, max_tile=4, batch_window_ms=window_ms)
     srv.warmup()
     assert len(pred.threads) == 3  # tiles 1, 2 and 4
-    body = npz({"x": np.zeros((1, 3), np.float32)})
+    body = one_sample_body(pred.cfg)
     with serving(srv) as url:
         threads = [threading.Thread(target=post, args=(url, body))
                    for _ in range(6)]
@@ -240,7 +247,7 @@ def test_close_fails_queued_stragglers():
     closed"), lets the one in flight finish, and refuses new ones."""
     pred = _GatedPredictor()
     srv = DepthServer(pred, max_tile=4, batch_window_ms=1.0)
-    body = npz({"x": np.zeros((1, 3), np.float32)})
+    body = one_sample_body(pred.cfg)
     out = {}
 
     def call(i):
@@ -296,11 +303,14 @@ def test_server_matches_jax_predictor():
 
 
 def test_main_refuses_spatial_and_a_missing_card(tiny_run, monkeypatch):
-    """--spatial 2 parses and raises NotImplementedError naming its ROADMAP
-    item (the daemon over ranks); without --platform cpu and without a
-    card, main raises."""
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        main(["--run", tiny_run, "--spatial", "2", "--platform", "cpu"])
+    """Under torchrun's WORLD_SIZE=2 without --spatial (the run's own is 1)
+    main refuses with a ValueError, since every rank would bind the port;
+    without --platform cpu and without a card, main raises."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="every rank would bind the port"):
+        main(["--run", tiny_run, "--spatial", "1", "--platform", "cpu",
+              "--port", "0"])
+    monkeypatch.delenv("WORLD_SIZE")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--run", tiny_run, "--port", "0"])
