@@ -28,7 +28,16 @@ Phases, each printing one JSON line:
                  path against the plain path on the card (TF32 off) and
                  against the CPU on a small input; img/s of both backends and
                  peak memory
-  profile        device time by kernel category over one B=8 predict call
+  profile        device time by kernel category over one B=8 predict call,
+                 its device events and device kernels, kernel B's device us
+                 at each of its sites
+  host_fold_abba the served flagship B=8 forward with the BN fold inside
+                 kernel B (rdt::batch_norm_relu) against the same forward
+                 with the fold patched back onto the host (five eager ops
+                 per site, then rdt::scale_bias_relu), in turns: launches,
+                 device kernels and busy ms per forward, host ms to enqueue
+                 the model's forward, img/s; predictions bit-equal, at least
+                 400 device kernels fewer per forward
   serve_http     the flagship (bfloat16, max_tile=8) behind the HTTP daemon
                  (serve.py::DepthServer on 127.0.0.1, in-process): warmup
                  seconds, /healthz 503 before it and 200 after, requests of 3
@@ -51,7 +60,7 @@ Phases, each printing one JSON line:
                  bit-equal to plain=True, counted (1 C or 1 A) and timed
                  beside it; utils.profiling.device_trace (the card by
                  default) around one served B=8 forward, its trace naming
-                 rdt::scale_bias_relu and rdt::zbuffer_min_depth_sorted
+                 rdt::batch_norm_relu and rdt::zbuffer_min_depth_sorted
   zoo            the rest of the registry at full width (bfloat16, B=8,
                  seeded random weights), each through Predictor with its
                  kernel B sites per forward checked against the module
@@ -69,14 +78,22 @@ Phases, each printing one JSON line:
                  statistics after one step bit-equal; whether a DeConv
                  decoder's bf16 train step repeats bit for bit, with cuDNN's
                  default and its deterministic algorithms
-  epilogue       kernel B against its plain version at every (shape, residual)
-                 that the flagship and the zoo give it at B=8, in bfloat16
-                 and float32: bit-equal, warm ms against the bytes bound; the
-                 host time per call of the registered operator
-                 torch.ops.rdt.scale_bias_relu, of its wrapper and of a
-                 torch.library.custom_op form against the bare ctypes launch
-                 at the smallest flagship site; the flagship's serving img/s
-                 at B=8 through the registered operators
+  epilogue       kernel B's two operators, rdt::batch_norm_relu (the BN
+                 folded in the kernel) and rdt::scale_bias_relu (folded scale
+                 and bias given), against their plain versions at every
+                 (shape, residual) that the flagship and the zoo give it at
+                 B=8, in bfloat16 and float32: bit-equal (signed zeros
+                 aside); warm, L2-cold, back-to-back and plain times against
+                 the bytes bound (device us per flagship site from phase
+                 profile), and F.batch_norm's time (less
+                 work: a yardstick, never called by the port); the host time
+                 per call of both operators, their wrappers and bare ctypes
+                 launches, the host fold before the wrapper, and a
+                 torch.library.custom_op form, at the smallest flagship site;
+                 the race check of programmatic dependent launch (a cuDNN
+                 conv writes x, kernel B reads it, 200 times at the stem and
+                 layer4 sites, each result bit-equal); the flagship's
+                 serving img/s at B=8 through the registered operators
   train          the flagship's train step at B=8 on SyntheticNuScenes(seed=0):
                  10 float32 and 10 bfloat16 steps on a repeated batch (loss
                  finite and falling), 3 steps with gt_augment="rerasterize",
@@ -170,6 +187,13 @@ H, W = 450, 800
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 L2_FLUSH_BYTES = 128 << 20  # written before each L2-cold run: > the 50 MB L2
 EPILOGUE_SITES_PER_FORWARD = 84
+EPS = 1e-5  # the model's BN epsilon (models/layers.py::make_norm)
+RACE_ITERS = 200  # conv-then-kernel-B launches per site of the race check
+# kernel B's timed runs (<= 50 launches of a few kernels) are enqueued in
+# well under the ~10 ms of this device sleep
+EPILOGUE_SLEEP_CYCLES = 20_000_000
+HOST_FOLD_MIN_KERNELS = 400  # device kernels per flagship forward the fold
+# inside kernel B must save (84 sites x 5 fold ops = 420)
 FP32_ABS_TOL = 1e-6  # kernel B vs plain, float32
 PARITY_REL_RMSE_TOL = 1e-5  # float32 forward, kernels vs plain, same card
 SMALL_TOL = dict(atol=2e-4, rtol=1e-3)  # card vs CPU, as the CPU parity tests
@@ -188,11 +212,13 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(torch, fn, iters=20, warmup=3, flush=None) -> float:
+def cuda_ms(torch, fn, iters=20, warmup=3, flush=None,
+            sleep_cycles=100_000_000) -> float:
     """Median of per-launch CUDA-event times over ``iters`` runs.
 
-    The runs are queued behind a ~50 ms device sleep, so the host has
-    enqueued them all before the card reaches the first: each event pair
+    The runs are queued behind a device sleep (``sleep_cycles``, ~50 ms by
+    default), so the host has enqueued them all before the card reaches the
+    first: each event pair
     then brackets the device's work alone, not the host's launch overhead
     (a function that synchronises inside, like the plain z-buffer, still
     pays its host gaps). With ``flush`` (from ``l2_flusher``), each run is
@@ -202,7 +228,7 @@ def cuda_ms(torch, fn, iters=20, warmup=3, flush=None) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)
+    torch.cuda._sleep(sleep_cycles)
     events = []
     for _ in range(iters):
         if flush is not None:
@@ -217,14 +243,15 @@ def cuda_ms(torch, fn, iters=20, warmup=3, flush=None) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def cuda_ms_back_to_back(torch, fn, launches=50, warmup=3) -> float:
+def cuda_ms_back_to_back(torch, fn, launches=50, warmup=3,
+                         sleep_cycles=100_000_000) -> float:
     """Event time of ``launches`` back-to-back runs, over their count: each
     run's launch overlaps the run before it, as inside a stream of work, so
     the per-launch cost of one event pair is spread over all of them."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)
+    torch.cuda._sleep(sleep_cycles)
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
     s.record()
@@ -241,12 +268,15 @@ def l2_flusher(torch, dev):
     return lambda: scratch.fill_(1.0)
 
 
-def warm_and_cold(torch, fn, flush, bound_ms) -> dict:
+def warm_and_cold(torch, fn, flush, bound_ms,
+                  sleep_cycles=100_000_000) -> dict:
     """Warm, L2-cold and back-to-back times of ``fn``, and the bound's share
     of the cold one."""
-    cold = cuda_ms(torch, fn, flush=flush)
-    return {"ms": cuda_ms(torch, fn), "ms_cold": cold,
-            "ms_back_to_back": cuda_ms_back_to_back(torch, fn),
+    cold = cuda_ms(torch, fn, flush=flush, sleep_cycles=sleep_cycles)
+    return {"ms": cuda_ms(torch, fn, sleep_cycles=sleep_cycles),
+            "ms_cold": cold,
+            "ms_back_to_back": cuda_ms_back_to_back(
+                torch, fn, sleep_cycles=sleep_cycles),
             "bound_ms": bound_ms, "bound_share": bound_ms / cold}
 
 
@@ -533,57 +563,81 @@ def record_epilogue_sites(torch, pred, batch):
     return seen
 
 
-def bf16_ulp(torch, x):
-    a = x.float().abs()
-    e = torch.floor(torch.log2(torch.where(a > 0, a, torch.ones_like(a))))
-    return torch.where(a > 0, torch.exp2(e - 7), torch.full_like(a, 2.0**-133))
+def bn_params(torch, dev, g, c):
+    """A BN's float32 (weight, bias, running_mean, running_var) near
+    identity, as init_random draws them: weight and var in [0.5, 1.5), bias
+    and mean N(0, 0.1)."""
+    near_one = lambda: torch.rand(c, generator=g, device=dev) + 0.5
+    small = lambda: torch.randn(c, generator=g, device=dev) * 0.1
+    return near_one(), small(), small(), near_one()
 
 
-def epilogue_host_us(torch, dev, calls=500, reps=6):
-    """Host time per call, in us, of kernel B's registered operator
-    (torch.ops.rdt.scale_bias_relu), of its wrapper (argument checks, then
-    the operator) and of the same launch as a torch.library.custom_op,
-    against the bare ctypes launch, at the smallest flagship site (bf16
-    8x512x15x25, no residual). Each run of ``calls`` calls is queued behind
-    a device sleep longer than the run, so the host never waits for the
-    card and its clock over the run measures the calls alone; the forms in
-    turns, the order reversed every round, medians over ``reps`` runs."""
+def bits_differ(torch, got, want):
+    """(elements whose bits differ, a zero of the other sign aside; the
+    zeros that differ only in their sign), as boolean tensors."""
+    idtype = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    differ = got.view(idtype) != want.view(idtype)
+    zeros = differ & (got == 0) & (want == 0)
+    return differ & ~zeros, zeros
+
+
+def epilogue_host_us(torch, dev, calls=128, reps=6):
+    """Host time per call, in us, of kernel B's forms at the smallest
+    flagship site (bf16 8x512x15x25, no residual): with the fold in the
+    kernel, the registered operator torch.ops.rdt.batch_norm_relu, its
+    wrapper (argument checks, then the operator) and its bare ctypes
+    launch; the site as it was before, the fold on the host
+    (kernels.fold_batch_norm, five eager ops) then the wrapper of
+    rdt::scale_bias_relu; and rdt::scale_bias_relu itself as operator,
+    wrapper, torch.library.custom_op form and bare launch. Each run of
+    ``calls`` calls is queued behind a device sleep longer than the run, so
+    the host never waits for the card and its clock over the run measures
+    the calls alone (128 calls keep the host-fold form's 768 launches
+    inside the launch queue); the forms in turns, the order reversed every
+    round, medians over ``reps`` runs."""
     from radar_depth_tpu_torch.ops import kernels
 
     g = torch.Generator(device=dev).manual_seed(4)
     x = torch.randn((8, 512, 15, 25), generator=g, device=dev).to(
         torch.bfloat16, memory_format=torch.channels_last)
-    scale = torch.rand(512, generator=g, device=dev) + 0.5
-    bias = torch.randn(512, generator=g, device=dev) * 0.1
+    w, b, m, v = bn_params(torch, dev, g, 512)
+    scale, bias = kernels.fold_batch_norm(w, b, m, v, EPS)
     out = torch.empty_like(x)
 
     def custom_impl(x, scale, bias):
         y = torch.empty_like(x)
-        kernels.launch_scale_bias_relu(x, scale, bias, None, y)
+        kernels.launch_epilogue(x, None, y, scale, bias)
         return y
 
     custom = torch.library.custom_op(
         "rdt_smoke::scale_bias_relu", custom_impl, mutates_args=(),
         schema="(Tensor x, Tensor scale, Tensor bias) -> Tensor")
-    fns = {"bare_ctypes_launch": lambda: kernels.launch_scale_bias_relu(
-               x, scale, bias, None, out),
+    fns = {"bnr_bare_ctypes_launch": lambda: kernels.launch_epilogue(
+               x, None, out, w, b, m, v, EPS),
+           "bnr_rdt_op": lambda: torch.ops.rdt.batch_norm_relu(
+               x, w, b, m, v, EPS),
+           "bnr_wrapper": lambda: kernels.batch_norm_relu(x, w, b, m, v, EPS),
+           "host_fold_then_wrapper": lambda: kernels.scale_bias_relu(
+               x, *kernels.fold_batch_norm(w, b, m, v, EPS)),
+           "bare_ctypes_launch": lambda: kernels.launch_epilogue(
+               x, None, out, scale, bias),
            "rdt_op": lambda: torch.ops.rdt.scale_bias_relu(x, scale, bias),
            "wrapper": lambda: kernels.scale_bias_relu(x, scale, bias),
            "custom_op": lambda: custom(x, scale, bias)}
-    want = kernels.scale_bias_relu_reference(x, scale, bias)
+    want = kernels.batch_norm_relu_reference(x, w, b, m, v, EPS)
     for name, fn in fns.items():
         got = fn()
-        if name == "bare_ctypes_launch":
+        if "bare" in name:
             got = out
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
+        if bits_differ(torch, got, want)[0].any():
             raise AssertionError(f"epilogue host timing: {name} differs")
     names = list(fns)
     times = {name: [] for name in names}
     for r in range(reps):
         for name in (names if r % 2 == 0 else names[::-1]):
             torch.cuda.synchronize()
-            torch.cuda._sleep(200_000_000)
+            torch.cuda._sleep(50_000_000)  # ~25 ms > 128 calls of any form
             t0 = time.perf_counter()
             for _ in range(calls):
                 fns[name]()
@@ -594,14 +648,89 @@ def epilogue_host_us(torch, dev, calls=500, reps=6):
             **{f"{name}_us_all": t for name, t in times.items()}}
 
 
-def phase_epilogue(torch, dev, sites_by_config, serve_img_per_s):
-    """Kernel B against its plain version at every (shape, residual) that
-    the served configurations give it (``sites_by_config``: config name ->
-    the sites of one B=8 forward), in bfloat16 and float32: bit-equal (a
-    signed zero aside), warm and plain ms, and the bytes bound; the host
-    cost per call of its operator (``epilogue_host_us``); the flagship's
-    serving img/s at B=8 through the operators (``serve_img_per_s``, from
-    phase serve)."""
+def epilogue_race_check(torch, dev, site, iters=RACE_ITERS):
+    """Kernel B's programmatic dependent launch against its hazard: a cuDNN
+    conv writes x (at "layer4" a 1x1 conv writes the residual first), and
+    batch_norm_relu reads it with nothing between them on the stream.
+    ``iters`` times, the conv's input taken from three in turn, so that the
+    buffer the allocator hands x again held other values before; every
+    result held bit-equal (signed zeros aside) to the plain version on the
+    same x, the mismatches summed on the card. Sites, bf16, B=8: "stem"
+    (8x64x225x400, the 7x7 stride-2 conv of 8x3x450x800, no residual) and
+    "layer4" (8x512x15x25, a 3x3 conv, with the residual)."""
+    import torch.nn.functional as F
+
+    from radar_depth_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    cl = torch.channels_last
+    if site == "stem":
+        cin, c, hw, k, stride = 3, 64, (H, W), 7, 2
+    else:
+        cin, c, hw, k, stride = 512, 512, (15, 25), 3, 1
+    he = lambda co, ci, kk: (torch.randn(co, ci, kk, kk, generator=g,
+                                         device=dev) * (2.0 / (ci * kk * kk))
+                             ** 0.5).to(torch.bfloat16, memory_format=cl)
+    inputs = [torch.randn(B_SERVE, cin, *hw, generator=g, device=dev).to(
+        torch.bfloat16, memory_format=cl) for _ in range(3)]
+    weight = he(c, cin, k)
+    shortcut = he(c, cin, 1) if site == "layer4" else None
+    params = bn_params(torch, dev, g, c)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    layouts = set()
+    torch.cuda.synchronize()
+    for i in range(iters):
+        inp = inputs[i % 3]
+        r = None if shortcut is None else F.conv2d(inp, shortcut)
+        x = F.conv2d(inp, weight, stride=stride, padding=k // 2)
+        layouts.add(x.is_contiguous(memory_format=cl))
+        y = kernels.batch_norm_relu(x, *params, EPS, r)
+        want = kernels.batch_norm_relu_reference(x, *params, EPS, r)
+        bad += bits_differ(torch, y, want)[0].sum()
+        del r, x, y, want
+    torch.cuda.synchronize()
+    out = {"site": site, "dtype": "bfloat16", "iters": iters,
+           "residual": shortcut is not None,
+           "conv_output_channels_last": sorted(layouts),
+           "mismatched_elements": int(bad)}
+    if out["mismatched_elements"] or layouts != {True}:
+        raise AssertionError(f"epilogue race check: {out}")
+    return out
+
+
+def epilogue_ops(kernels, x, res, bn, folded):
+    """{operator: (its wrapper's call, its plain version's call, the bytes
+    it must move)} of kernel B's two operators on x and the residual, with
+    the BN's (weight, bias, running_mean, running_var) ``bn`` or their
+    ``folded`` (scale, bias)."""
+    c = bn[0].shape[0]
+    moved = x.numel() * x.element_size() * (2 if res is None else 3)
+    return {
+        "batch_norm_relu": (
+            lambda: kernels.batch_norm_relu(x, *bn, EPS, res),
+            lambda: kernels.batch_norm_relu_reference(x, *bn, EPS, res),
+            moved + 4 * c * 4),
+        "scale_bias_relu": (
+            lambda: kernels.scale_bias_relu(x, *folded, res),
+            lambda: kernels.scale_bias_relu_reference(x, *folded, res),
+            moved + 2 * c * 4)}
+
+
+def phase_epilogue(torch, dev, sites_by_config, device_us_by_site,
+                   serve_img_per_s):
+    """Kernel B's two operators against their plain versions at every
+    (shape, residual) that the served configurations give it
+    (``sites_by_config``: config name -> the sites of one B=8 forward), in
+    bfloat16 and float32: bit-equal (a signed zero aside); warm, L2-cold,
+    back-to-back and plain ms beside the bytes bound, and the device us of
+    the flagship's bf16 sites in a profiled served forward
+    (``device_us_by_site``, from phase profile); the yardstick
+    F.batch_norm (less work: no ReLU, no residual), timed only; the host
+    cost per call (``epilogue_host_us``); the conv-then-kernel race check at
+    the stem and layer4 sites; the flagship's serving img/s at B=8 through
+    the operators (``serve_img_per_s``, from phase serve)."""
+    import torch.nn.functional as F
+
     from radar_depth_tpu_torch.ops import kernels
 
     per_site = {}
@@ -610,52 +739,61 @@ def phase_epilogue(torch, dev, sites_by_config, serve_img_per_s):
             counts = per_site.setdefault(site, {})
             counts[name] = counts.get(name, 0) + 1
     g = torch.Generator(device=dev).manual_seed(1)
+    flush = l2_flusher(torch, dev)
     shapes = sorted(per_site, key=lambda s: (-math.prod(s[0]), s[1]))
     results, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
-    for dtype, dname, idtype in ((torch.bfloat16, "bfloat16", torch.int16),
-                                 (torch.float32, "float32", torch.int32)):
+    for dtype, dname in ((torch.bfloat16, "bfloat16"),
+                         (torch.float32, "float32")):
         for shape, has_res in shapes:
-            c = shape[1]
             mk = lambda: torch.randn(shape, generator=g, device=dev).to(
                 dtype, memory_format=torch.channels_last)
             x = mk()
             res = mk() if has_res else None
-            scale = torch.rand(c, generator=g, device=dev) + 0.5
-            bias = torch.randn(c, generator=g, device=dev) * 0.1
-            got = kernels.scale_bias_relu(x, scale, bias, res)
-            want = kernels.scale_bias_relu_reference(x, scale, bias, res)
-            err = (got.float() - want.float()).abs()
-            # bit-equal, except that a zero may differ in its sign
-            bits_differ = got.view(idtype) != want.view(idtype)
-            signed_zeros = int((bits_differ & (got == 0) & (want == 0)).sum())
-            if int(bits_differ.sum()) != signed_zeros:
-                raise AssertionError(
-                    f"epilogue {dname} {shape} res={has_res}: "
-                    f"{int(bits_differ.sum()) - signed_zeros} values differ "
-                    f"from the plain version in their bits (max err "
-                    f"{float(err.max())})")
-            max_err[dname] = max(max_err[dname], float(err.max()))
-            elem = 2 if dtype == torch.bfloat16 else 4
-            nbytes = x.numel() * elem * (3 if has_res else 2) + 2 * c * 4
-            results.append({
-                "dtype": dname, "shape_nchw": list(shape),
-                "residual": has_res, "max_abs_err": float(err.max()),
-                "bit_equal": signed_zeros == 0,
-                "signed_zero_diffs": signed_zeros,
-                "sites_per_forward": per_site[(shape, has_res)],
-                "ms": cuda_ms(torch, lambda: kernels.scale_bias_relu(
-                    x, scale, bias, res)),
-                "plain_ms": cuda_ms(torch, lambda: kernels.
-                                    scale_bias_relu_reference(x, scale, bias,
-                                                              res)),
-                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+            w, b, m, v = bn_params(torch, dev, g, shape[1])
+            scale, bias = kernels.fold_batch_norm(w, b, m, v, EPS)
+            r = {"dtype": dname, "shape_nchw": list(shape), "residual": has_res,
+                 "sites_per_forward": per_site[(shape, has_res)]}
+            for op, (fn, plain, nbytes) in epilogue_ops(
+                    kernels, x, res, (w, b, m, v), (scale, bias)).items():
+                got, want = fn(), plain()
+                differ, zeros = bits_differ(torch, got, want)
+                err = float((got.float() - want.float()).abs().max())
+                if differ.any():
+                    raise AssertionError(
+                        f"epilogue {op} {dname} {shape} res={has_res}: "
+                        f"{int(differ.sum())} values differ from the plain "
+                        f"version in their bits (max err {err})")
+                max_err[dname] = max(max_err[dname], err)
+                r[op] = {"max_abs_err": err,
+                         "signed_zero_diffs": int(zeros.sum()),
+                         **warm_and_cold(torch, fn, flush,
+                                         nbytes / HBM_BYTES_PER_S * 1e3,
+                                         EPILOGUE_SLEEP_CYCLES),
+                         "plain_ms": cuda_ms(
+                             torch, plain,
+                             sleep_cycles=EPILOGUE_SLEEP_CYCLES)}
+            in_forward = device_us_by_site.get((shape, has_res))
+            if dtype == torch.bfloat16 and in_forward:
+                r["batch_norm_relu"]["device_us_in_forward"] = (
+                    statistics.median(in_forward))
+            r["f_batch_norm_ms"] = cuda_ms(  # timed here, before x is rebound
+                torch, lambda: F.batch_norm(x, m, v, w, b, training=False,
+                                            eps=EPS),
+                sleep_cycles=EPILOGUE_SLEEP_CYCLES)
+            results.append(r)
+    del flush
     host = epilogue_host_us(torch, dev)
+    race = [epilogue_race_check(torch, dev, site) for site in ("stem",
+                                                               "layer4")]
     emit({"phase": "epilogue", "cases": len(results), "max_abs_err": max_err,
           "configs": sorted(sites_by_config),
-          "check": "bit-equal to the plain version (signed zeros aside)",
-          "host_us_per_call": host,
+          "check": "both operators bit-equal to their plain versions "
+                   "(signed zeros aside)",
+          "host_us_per_call": {k: v for k, v in host.items()
+                               if not k.endswith("_all")},
+          "race_check": race,
           "flagship_serve_img_per_s_b8_registered_ops": serve_img_per_s})
-    return results, max_err, host
+    return results, max_err, host, race
 
 
 # ------------------------------------------------------------- serving
@@ -1132,6 +1270,10 @@ def phase_export(torch, np, dev, batch, sd, pred):
                 if n.op == "call_function" and (name.startswith("rdt.")
                                                 or "clone" in name):
                     nodes[name] = nodes.get(name, 0) + 1
+            if (nodes.get("rdt.batch_norm_relu.default")
+                    != EPILOGUE_SITES_PER_FORWARD
+                    or "rdt.scale_bias_relu.default" in nodes):
+                raise AssertionError(f"export {backend}: rdt nodes {nodes}")
             serve(b8)  # first call: cuDNN set-up for the artifact's convs
             torch.cuda.synchronize()
             # the main path, counted: one call of the loaded artifact
@@ -1250,7 +1392,7 @@ def phase_ops_api(torch, np, dev, batch, pred):
         with open(files[0]) as f:
             text = f.read()
         names = {op: text.count(f'"{op}"') for op in (
-            "rdt::scale_bias_relu", "rdt::zbuffer_min_depth_sorted",
+            "rdt::batch_norm_relu", "rdt::zbuffer_min_depth_sorted",
             "served_forward_b8")}
         out["trace"] = {"bytes": os.path.getsize(files[0]),
                         "events_named": names}
@@ -1530,9 +1672,12 @@ def _category(name: str) -> str:
     return "other"
 
 
-def profile_device(torch, fn, name, batch_size):
+def device_profile(torch, fn, ordered=None) -> dict:
     """Device time by kernel category over one call of ``fn`` (torch.profiler,
-    CUPTI), against the call's host-clock wall time."""
+    CUPTI), against the call's host-clock wall time; the device events
+    (kernels and copies) and the device kernels alone (copies and fills
+    aside) that the call ran; with ``ordered``, the device us of each
+    kernel whose name holds it, in the order they ran (``ordered_us``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1544,7 +1689,7 @@ def profile_device(torch, fn, name, batch_size):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    cats, kernels_by_name, launches = {}, {}, 0
+    cats, kernels_by_name, launches, device_kernels = {}, {}, 0, 0
     for e in prof.key_averages():
         # user annotations (Optimizer.step's range) span kernels counted
         # on their own
@@ -1557,20 +1702,125 @@ def profile_device(torch, fn, name, batch_size):
         cats[_category(e.key)] = cats.get(_category(e.key), 0.0) + us / 1e3
         kernels_by_name[e.key[:80]] = us / 1e3
         launches += e.count
+        if _category(e.key) != "memcpy":
+            device_kernels += e.count
     busy = sum(cats.values())
     top = sorted(kernels_by_name.items(), key=lambda kv: -kv[1])[:8]
-    out = {"phase": name, "batch": batch_size,
-           "wall_ms": wall_ms, "device_busy_ms": busy,
-           "device_idle_share": (1 - busy / wall_ms) if busy else None,
-           "device_ms_by_category": cats, "device_events": launches,
-           "top_kernels_ms": top}
+    out = {}
+    if ordered:
+        out["ordered_us"] = [
+            e.time_range.elapsed_us() for e in sorted(
+                (e for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and ordered in e.name), key=lambda e: e.time_range.start)]
+    return {**out, "wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": (1 - busy / wall_ms) if busy else None,
+            "device_ms_by_category": cats, "device_events": launches,
+            "device_kernels": device_kernels, "top_kernels_ms": top}
+
+
+def profile_device(torch, fn, name, batch_size):
+    """``device_profile`` of ``fn``, emitted as phase ``name``."""
+    out = {"phase": name, "batch": batch_size, **device_profile(torch, fn)}
     emit(out)
     return out
 
 
-def phase_profile(torch, pred, batch):
-    return profile_device(torch, lambda: pred.predict(batch), "profile",
-                          next(iter(batch.values())).shape[0])
+def phase_profile(torch, pred, batch, sites):
+    """``device_profile`` of one served predict call, emitted; and kernel
+    B's device us at each of the forward's ``sites`` (in forward order, as
+    ``record_epilogue_sites`` gives them): {(shape, residual): [us, ...]},
+    empty if the trace does not hold one kernel B event per site."""
+    out = device_profile(torch, lambda: pred.predict(batch), ordered="sbr_")
+    kernel_b_us = out.pop("ordered_us")
+    by_site = {}
+    if len(kernel_b_us) == len(sites):
+        for site, us in zip(sites, kernel_b_us):
+            by_site.setdefault(site, []).append(us)
+    out = {"phase": "profile", "batch": next(iter(batch.values())).shape[0],
+           "kernel_B_events": len(kernel_b_us), **out}
+    emit(out)
+    return out, by_site
+
+
+def phase_host_fold_abba(torch, np, pred, batch, reps=6):
+    """The served flagship B=8 forward with the BN fold inside kernel B (the
+    port's rdt::batch_norm_relu) against the same forward with the fold put
+    back on the host (kernels.fold_batch_norm's five eager ops per site,
+    then rdt::scale_bias_relu: the form before it), patched in here and
+    nowhere in the package. Per form: launches per forward, device kernels
+    and busy ms of one predict call (``device_profile``), and in turns, the
+    order reversed every round (ABBA), medians over ``reps`` rounds: the
+    host ms to enqueue the model's forward on inputs already on the card,
+    and img/s of whole predict calls. The predictions of the two forms must
+    be bit-equal, and the fold inside the kernel must save at least
+    HOST_FOLD_MIN_KERNELS device kernels per forward."""
+    from radar_depth_tpu_torch.ops import kernels
+    from radar_depth_tpu_torch.ops.preprocess import (
+        pack_model_inputs,
+        prepare_eval_batch,
+    )
+
+    def host_fold(x, weight, bias, running_mean, running_var, eps,
+                  residual=None):
+        return kernels.scale_bias_relu(x, *kernels.fold_batch_norm(
+            weight, bias, running_mean, running_var, eps), residual)
+
+    shipped = kernels.batch_norm_relu
+    forms = {"kernel_fold": shipped, "host_fold": host_fold}
+    b8 = {k: v[:B_SERVE] for k, v in batch.items()}
+    with torch.inference_mode():
+        inputs = pack_model_inputs(
+            prepare_eval_batch(b8, pred._pre, pred.device),
+            pred.arch_spec.input_kind, pred.cfg.modality)
+
+    def forward():
+        with torch.inference_mode():
+            return pred.model(*inputs)
+
+    out, preds = {}, {}
+    names = list(forms)
+    host_ms = {n: [] for n in names}
+    call_s = {n: [] for n in names}
+    try:
+        for name in names:
+            kernels.batch_norm_relu = forms[name]
+            reset_launches()
+            preds[name] = pred.predict(b8)
+            out[name] = {"launches": read_launches(),
+                         **device_profile(torch, lambda: pred.predict(b8))}
+        for r in range(reps):
+            for name in (names if r % 2 == 0 else names[::-1]):
+                kernels.batch_norm_relu = forms[name]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                forward()
+                host_ms[name].append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pred.predict(b8)
+                call_s[name].append(time.perf_counter() - t0)
+    finally:
+        kernels.batch_norm_relu = shipped
+    for name in names:
+        out[name].update({
+            "host_ms_per_forward": statistics.median(host_ms[name]),
+            "host_ms_per_forward_all": host_ms[name],
+            "img_per_s_b8": B_SERVE / statistics.median(call_s[name]),
+            "ms_per_call_b8_all": [t * 1e3 for t in call_s[name]]})
+    saved = (out["host_fold"]["device_kernels"]
+             - out["kernel_fold"]["device_kernels"])
+    result = {"phase": "host_fold_abba", "batch": B_SERVE,
+              "device_kernels_saved_per_forward": saved,
+              "predictions_bit_equal": bool(np.array_equal(
+                  preds["kernel_fold"], preds["host_fold"])),
+              **out}
+    emit(result)
+    want = {KERNELS["A"]: 0, KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD,
+            KERNELS["C"]: 1}
+    if (saved < HOST_FOLD_MIN_KERNELS or not result["predictions_bit_equal"]
+            or any(out[n]["launches"] != want for n in names)):
+        raise AssertionError(f"host fold ABBA: {result}")
+    return result
 
 
 def phase_profile_train(torch, dev, trained, batch):
@@ -2985,6 +3235,12 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     t_start = t0 = time.perf_counter()
+    laps, last = {}, [t_start]
+
+    def lap(phase):  # seconds of each phase, for the wall line
+        now = time.perf_counter()
+        laps[phase], last[0] = now - last[0], now
+
     built = kernels.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc": built,
@@ -3005,27 +3261,42 @@ def main(argv=None) -> int:
                                   output_size=(H, W))[0], 0).state_dict()
     emit({"phase": "data", "seconds": time.perf_counter() - t0,
           "samples": 24, "weights_seed": 0})
+    lap("build_device_data")
 
     flush = l2_flusher(torch, dev)
     zb = phase_zbuffer(torch, dev, batch, flush)
+    lap("zbuffer")
     zbs = phase_zbuffer_sorted(torch, dev, batch, flush)
+    lap("zbuffer_sorted")
     del flush
     launches, launches_sc, speed, parity, pred, sites = phase_serve(
         torch, np, dev, batch, sd)
-    prof = phase_profile(torch, pred, {k: v[:B_SERVE]
-                                       for k, v in batch.items()})
+    lap("serve")
+    prof, kernel_b_us_by_site = phase_profile(
+        torch, pred, {k: v[:B_SERVE] for k, v in batch.items()}, sites)
+    lap("profile")
+    host_fold = phase_host_fold_abba(torch, np, pred, batch)
+    lap("host_fold_abba")
     serve_http = phase_serve_http(torch, np, pred, batch)
+    lap("serve_http")
     export = phase_export(torch, np, dev, batch, sd, pred)
+    lap("export")
     ops_api = phase_ops_api(torch, np, dev, batch, pred)
+    lap("ops_api")
     del pred
     torch.cuda.empty_cache()
     zoo, zoo_sites, prof_zoo = phase_zoo(torch, np, dev, batch)
-    epi, epi_err, epi_host = phase_epilogue(
+    lap("zoo")
+    epi, epi_err, epi_host, epi_race = phase_epilogue(
         torch, dev, {"resnet18_multistage": sites, **zoo_sites},
-        speed["sorted"]["img_per_s_b8"])
+        kernel_b_us_by_site, speed["sorted"]["img_per_s_b8"])
+    lap("epilogue")
     train, train_launches, trained = phase_train(torch, np, dev, batch)
+    lap("train")
     ev = phase_eval(torch, np, dev, batch, trained)
+    lap("eval")
     prof_train = phase_profile_train(torch, dev, trained, batch)
+    lap("profile_train")
     del trained
     torch.cuda.empty_cache()
     import shutil
@@ -3035,17 +3306,22 @@ def main(argv=None) -> int:
     try:
         harness, prof_harness = phase_harness(
             torch, np, dev, train["bfloat16"]["img_per_s"], tmp)
+        lap("harness")
         dp = phase_data_parallel(torch, np, dev, batch, tmp)
+        lap("data_parallel")
         spatial = phase_spatial(torch, np, dev, batch, tmp)
+        lap("spatial")
         serve_spatial = phase_serve_http_spatial(
             torch, np, dev, batch, tmp,
             serve_http["concurrency"]["coalesced"])
+        lap("serve_http_spatial")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    stem = next(r for r in epi if r["dtype"] == "bfloat16"
-                and not r["residual"] and r["shape_nchw"][1] == 64
-                and r["shape_nchw"][2] == (H + 1) // 2)
+    stem_site = next(r for r in epi if r["dtype"] == "bfloat16"
+                     and not r["residual"] and r["shape_nchw"][1] == 64
+                     and r["shape_nchw"][2] == (H + 1) // 2)
+    stem = stem_site["batch_norm_relu"]
     serve = zb["serve_radar"]
     radar = zbs["radar"]
     summary = {"kernels": [
@@ -3066,7 +3342,8 @@ def main(argv=None) -> int:
          "bound_share": serve["bound_share"],
          "library_ms": serve["library_ms"]},
         {"name": "scale_bias_relu", "route": "cuda",
-         "op": "rdt::scale_bias_relu",
+         "op": "rdt::batch_norm_relu (the BN folded in the kernel; "
+               "rdt::scale_bias_relu takes the folded scale and bias)",
          "source": "radar_depth_tpu_torch/csrc/epilogue.cu",
          "replaces": "radar_depth_tpu/ops/pallas_kernels.py:251",
          "launches": launches[KERNELS["B"]],
@@ -3086,16 +3363,28 @@ def main(argv=None) -> int:
              for k, r in serve_http["requests"].items()},
          "launches_export_call": export["sorted"]["launches"][KERNELS["B"]],
          "host_us_per_call": {k: epi_host[f"{k}_us"] for k in (
-             "bare_ctypes_launch", "rdt_op", "wrapper", "custom_op")},
+             "bnr_bare_ctypes_launch", "bnr_rdt_op", "bnr_wrapper",
+             "host_fold_then_wrapper", "bare_ctypes_launch", "rdt_op",
+             "wrapper", "custom_op")},
+         "race_check_mismatches": {r["site"]: r["mismatched_elements"]
+                                   for r in epi_race},
+         "device_kernels_per_flagship_forward": {
+             k: host_fold[k]["device_kernels"]
+             for k in ("kernel_fold", "host_fold")},
          "launches_per_forward": {
              name: n[KERNELS["B"]] // n[KERNELS["C"]]
              for name, n in (("resnet18_multistage", launches),
                              *((k, r["launches"]) for k, r in zoo.items()
                                if "launches" in r))},
          "max_abs_err": max(epi_err.values()),
-         "ms": stem["ms"], "plain_ms": stem["plain_ms"],
+         "ms": stem["ms"], "ms_cold": stem["ms_cold"],
+         "ms_back_to_back": stem["ms_back_to_back"],
+         "device_us_in_forward": stem.get("device_us_in_forward"),
+         "plain_ms": stem["plain_ms"],
          "bound_ms": stem["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "bound_share": stem["bound_share"],
+         "library_ms": None,
+         "yardstick_f_batch_norm_ms": stem_site["f_batch_norm_ms"]},
         {"name": "zbuffer_min_depth_sorted", "route": "cuda",
          "op": "rdt::zbuffer_min_depth_sorted",
          "source": "radar_depth_tpu_torch/csrc/zbuffer_sorted.cu",
@@ -3145,10 +3434,13 @@ def main(argv=None) -> int:
                        "ops_api": ops_api,
                        "serve_http": serve_http, "export": export,
                        "epilogue_host_us": epi_host,
+                       "epilogue_race_check": epi_race,
+                       "host_fold_abba": host_fold,
                        "zoo": zoo, "profile_zoo": prof_zoo,
                        "wall_s": time.perf_counter() - t_start,
                        "summary": summary}, f, indent=1)
-    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": laps})
     emit(summary)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,9 +4,10 @@ bytes, as the JAX package and kernel B use).
 Mirrors ``radar_depth_tpu/models/layers.py``. Convolutions go to cuDNN
 through ``torch.nn.functional``. Modules follow ``train()`` / ``eval()``: in
 eval mode every BN that is followed by a ReLU runs as kernel B
-(``ops/kernels.py::scale_bias_relu``), with its optional residual; in train
-mode BN normalizes with batch statistics in plain PyTorch with autograd, as
-flax's ``BatchNorm`` does in plain XLA in the JAX package.
+(``ops/kernels.py::batch_norm_relu``, the BN folded inside the kernel), with
+its optional residual; in train mode BN normalizes with batch statistics in
+plain PyTorch with autograd, as flax's ``BatchNorm`` does in plain XLA in the
+JAX package.
 
 Parameter names follow the flax tree: a conv's ``kernel`` is ``weight``
 (OIHW), a BN's ``scale``/``bias`` are ``weight``/``bias`` and its
@@ -201,9 +202,11 @@ class BatchNorm(nn.Module):
 
     Eval mode: the folded ``scale = gamma/sqrt(var+eps)`` and ``bias = beta -
     mean*scale`` are float32; ``forward(x, relu=True, residual=r)`` is
-    ``relu(bn(x) + r)`` through kernel B, and without ``relu`` the BN is plain
-    PyTorch. ``plain=True`` sends kernel B's sites to its plain version on any
-    device (the reference on the card, set by ``use_plain_kernels``).
+    ``relu(bn(x) + r)`` through kernel B, which folds the BN's parameters and
+    running statistics itself (one launch), and without ``relu`` the BN is
+    plain PyTorch. ``plain=True`` sends kernel B's sites to its plain version
+    (``folded()``, then ``scale_bias_relu_reference``) on any device (the
+    reference on the card, set by ``use_plain_kernels``).
 
     Train mode: flax's ``BatchNorm`` in plain PyTorch with autograd. Batch
     statistics in (at least) float32 over (N, H, W), the variance biased,
@@ -251,8 +254,9 @@ class BatchNorm(nn.Module):
         return (n * h * w) / (n * self.rows_in * w * self.mesh.data_size)
 
     def folded(self):
-        scale = self.weight * torch.rsqrt(self.running_var + self.epsilon)
-        return scale, self.bias - self.running_mean * scale
+        return kernels.fold_batch_norm(self.weight, self.bias,
+                                       self.running_mean, self.running_var,
+                                       self.epsilon)
 
     def _train_forward(self, x, relu, residual):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
@@ -279,11 +283,13 @@ class BatchNorm(nn.Module):
             raise ValueError("a residual is added only before a ReLU")
         if self.training:
             return self._train_forward(x, relu, residual)
+        if relu and not self.plain:
+            return kernels.batch_norm_relu(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, self.epsilon, residual)
         scale, bias = self.folded()
         if relu:
-            fn = (kernels.scale_bias_relu_reference if self.plain
-                  else kernels.scale_bias_relu)
-            return fn(x, scale, bias, residual)
+            return kernels.scale_bias_relu_reference(x, scale, bias, residual)
         y = x.float() * scale.view(1, -1, 1, 1) + bias.view(1, -1, 1, 1)
         return y.to(x.dtype)
 

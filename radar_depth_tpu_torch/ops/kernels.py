@@ -4,24 +4,27 @@ counters and build loader.
 * Kernel A, ``zbuffer_min_depth`` (``csrc/zbuffer.cu``): the min-depth
   z-buffer. Replaces ``radar_depth_tpu/ops/pallas_kernels.py::
   rasterize_min_depth_pallas``.
-* Kernel B, ``scale_bias_relu`` (``csrc/epilogue.cu``): the eval-mode BN
-  epilogue ``relu(x*scale + bias (+ residual))``. Replaces ``radar_depth_tpu/
-  ops/pallas_kernels.py::fused_scale_bias_relu``.
+* Kernel B (``csrc/epilogue.cu``): the eval-mode BN epilogue ``relu(x*scale
+  + bias (+ residual))``, as ``scale_bias_relu`` (the folded scale and bias
+  given) and as ``batch_norm_relu`` (the BN's own parameters and running
+  statistics, folded inside the kernel). Replaces ``radar_depth_tpu/ops/
+  pallas_kernels.py::fused_scale_bias_relu``.
 * Kernel C, ``zbuffer_min_depth_sorted`` (``csrc/zbuffer_sorted.cu``): the
   min-depth z-buffer over points sorted by pixel. Replaces ``radar_depth_tpu/
   ops/pallas_kernels.py::rasterize_min_depth_pallas_sorted``.
 
 Each kernel is a registered torch operator, ``torch.ops.rdt.
-zbuffer_min_depth``, ``rdt.zbuffer_min_depth_sorted`` and ``rdt.
-scale_bias_relu``, so that a tracer (``torch.export``) keeps it as one node of
-its graph. Each operator has three implementations: the CUDA launch, the plain
-version for the CPU, and a fake one that gives the output's shape, dtype,
-device and memory format to the tracer. No other device has one, so a tensor
-elsewhere raises. Each wrapper checks its arguments, then calls its operator;
-there is no fallback between the CPU and the card. The CUDA implementation
-counts its launches in a plain integer attribute of the wrapper
-(``zbuffer_min_depth.launches``), which a run can reset and read to show that
-the main path went through the kernel.
+zbuffer_min_depth``, ``rdt.zbuffer_min_depth_sorted``, ``rdt.scale_bias_relu``
+and ``rdt.batch_norm_relu``, so that a tracer (``torch.export``) keeps it as
+one node of its graph. Each operator has three implementations: the CUDA
+launch, the plain version for the CPU, and a fake one that gives the output's
+shape, dtype, device and memory format to the tracer. No other device has
+one, so a tensor elsewhere raises. Each wrapper checks its arguments, then
+calls its operator; there is no fallback between the CPU and the card. The
+CUDA implementation counts its launches in a plain integer attribute of the
+kernel's wrapper (``zbuffer_min_depth.launches``; kernel B's two operators
+both in ``scale_bias_relu.launches``), which a run can reset and read to show
+that the main path went through the kernel.
 
 The sources are compiled with ``nvcc`` at first use by a CUDA tensor (or by
 ``build()``), into ``radar_depth_tpu_torch/_build/`` under a name that carries
@@ -58,6 +61,9 @@ OPS.define("zbuffer_min_depth(Tensor lin, Tensor z, int height, int width) "
 OPS.define("zbuffer_min_depth_sorted(Tensor lin_sorted, Tensor z_sorted, "
            "int height, int width) -> Tensor")
 OPS.define("scale_bias_relu(Tensor x, Tensor scale, Tensor bias, "
+           "Tensor? residual=None) -> Tensor")
+OPS.define("batch_norm_relu(Tensor x, Tensor weight, Tensor bias, "
+           "Tensor running_mean, Tensor running_var, float eps, "
            "Tensor? residual=None) -> Tensor")
 
 
@@ -125,7 +131,8 @@ def _library(name: str) -> ctypes.CDLL:
             "zbuffer": ("rdt_zbuffer_min_depth", zbuffer_args),
             "zbuffer_sorted": ("rdt_zbuffer_min_depth_sorted", zbuffer_args),
             "epilogue": ("rdt_scale_bias_relu",
-                         [vp, vp, vp, vp, vp, cll, ci, ci, vp]),
+                         [vp, vp, vp, vp, vp, vp, vp, ctypes.c_float, cll, ci,
+                          ci, vp]),
         }[name]
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = ci
@@ -299,12 +306,14 @@ def _channel_shape(x: torch.Tensor) -> tuple:
     return (-1,)
 
 
-def _check_epilogue(x, scale, bias, residual) -> None:
+def _check_epilogue(x, params: dict, residual) -> None:
+    """Raise unless kernel B takes ``x``, the (C,) float32 ``params``
+    (name -> tensor) and ``residual``."""
     shape = _channel_shape(x)
     c = x.shape[1] if shape == (1, -1, 1, 1) else x.shape[-1]
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    for name, t in (("scale", scale), ("bias", bias)):
+    for name, t in params.items():
         if (t.shape != (c,) or t.dtype != torch.float32
                 or not t.is_contiguous() or t.device != x.device):
             raise ValueError(f"{name} must be a contiguous float32 ({c},) "
@@ -315,6 +324,15 @@ def _check_epilogue(x, scale, bias, residual) -> None:
             raise ValueError("residual must match x in shape, dtype and "
                              "device")
         _channel_shape(residual)  # same memory order as x, or raise
+
+
+def fold_batch_norm(weight: torch.Tensor, bias: torch.Tensor,
+                    running_mean: torch.Tensor, running_var: torch.Tensor,
+                    eps: float) -> tuple:
+    """An eval-mode BN's float32 (scale, bias): ``weight/sqrt(var+eps)`` and
+    ``bias - mean*scale``, in the order kernel B folds them."""
+    scale = weight * torch.rsqrt(running_var + eps)
+    return scale, bias - running_mean * scale
 
 
 def scale_bias_relu_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -328,43 +346,93 @@ def scale_bias_relu_reference(x: torch.Tensor, scale: torch.Tensor,
     return torch.relu(y).to(x.dtype)
 
 
+def batch_norm_relu_reference(x, weight, bias, running_mean, running_var,
+                              eps: float, residual=None):
+    """Plain version of kernel B with the fold: ``fold_batch_norm`` then
+    ``scale_bias_relu_reference``."""
+    return scale_bias_relu_reference(
+        x, *fold_batch_norm(weight, bias, running_mean, running_var, eps),
+        residual)
+
+
 def scale_bias_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     residual: torch.Tensor | None = None) -> torch.Tensor:
     """``relu(x*scale[c] + bias[c] (+ residual))`` with float32 (C,) scale and
     bias over float32 or bfloat16 ``x`` (NCHW channels_last, or contiguous
     (..., C)). Kernel B on the card, the plain version on the CPU
     (``torch.ops.rdt.scale_bias_relu``)."""
-    _check_epilogue(x, scale, bias, residual)
+    _check_epilogue(x, {"scale": scale, "bias": bias}, residual)
     _on_card(x)
     return torch.ops.rdt.scale_bias_relu(x, scale, bias, residual)
 
 
-def launch_scale_bias_relu(x, scale, bias, residual, out) -> None:
+def batch_norm_relu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    running_mean: torch.Tensor, running_var: torch.Tensor,
+                    eps: float,
+                    residual: torch.Tensor | None = None) -> torch.Tensor:
+    """Eval-mode BN, ``(+ residual)``, ReLU: ``scale_bias_relu`` of the BN's
+    float32 (C,) weight, bias and running statistics folded with ``eps``
+    (``fold_batch_norm``), the fold done inside kernel B's one launch on the
+    card, the plain version on the CPU (``torch.ops.rdt.batch_norm_relu``).
+    Its launches count in ``scale_bias_relu.launches``."""
+    _check_epilogue(x, {"weight": weight, "bias": bias,
+                        "running_mean": running_mean,
+                        "running_var": running_var}, residual)
+    _on_card(x)
+    return torch.ops.rdt.batch_norm_relu(x, weight, bias, running_mean,
+                                         running_var, eps, residual)
+
+
+def launch_epilogue(x, residual, out, p0, p1, running_mean=None,
+                    running_var=None, eps: float = 0.0) -> None:
     """Kernel B's bare launch into ``out``, unchecked and uncounted: the
-    CUDA implementation's body (``chip_smoke.py`` times the operator's host
-    cost against it)."""
-    with torch.cuda.device(x.device):
-        err = _library("epilogue").rdt_scale_bias_relu(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            None if residual is None else residual.data_ptr(), out.data_ptr(),
-            x.numel(), scale.shape[0], _DTYPE_CODE[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    _check_launch(err, "scale_bias_relu")
+    CUDA implementations' body. ``p0, p1`` are the folded scale and bias,
+    or, with the running statistics given, the BN's weight and bias, folded
+    in the kernel with ``eps``. One ctypes call on x's device and current
+    stream; the device is switched only when x's is not the current one."""
+    fn = _library("epilogue").rdt_scale_bias_relu
+    index = x.device.index
+    args = (x.data_ptr(), None if residual is None else residual.data_ptr(),
+            out.data_ptr(), p0.data_ptr(), p1.data_ptr(),
+            None if running_mean is None else running_mean.data_ptr(),
+            None if running_var is None else running_var.data_ptr(), eps,
+            x.numel(), p0.shape[0], _DTYPE_CODE[x.dtype],
+            torch._C._cuda_getCurrentRawStream(index))
+    if index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
+    _check_launch(err, "kernel B")
 
 
 def _scale_bias_relu_cuda(x, scale, bias, residual=None):
     out = torch.empty_like(x)
-    launch_scale_bias_relu(x, scale, bias, residual, out)
-    scale_bias_relu.launches += 1
+    if x.numel():
+        launch_epilogue(x, residual, out, scale, bias)
+        scale_bias_relu.launches += 1
     return out
 
 
-def _scale_bias_relu_fake(x, scale, bias, residual=None):
+def _batch_norm_relu_cuda(x, weight, bias, running_mean, running_var, eps,
+                          residual=None):
+    out = torch.empty_like(x)
+    if x.numel():
+        launch_epilogue(x, residual, out, weight, bias, running_mean,
+                        running_var, eps)
+        scale_bias_relu.launches += 1
+    return out
+
+
+def _epilogue_fake(x, *args):
     return torch.empty_like(x)  # the same memory format: channels_last
 
 
 OPS.impl("scale_bias_relu", _scale_bias_relu_cuda, "CUDA")
 OPS.impl("scale_bias_relu", scale_bias_relu_reference, "CPU")
-torch.library.register_fake("rdt::scale_bias_relu", _scale_bias_relu_fake,
-                            lib=OPS)
+torch.library.register_fake("rdt::scale_bias_relu", _epilogue_fake, lib=OPS)
+OPS.impl("batch_norm_relu", _batch_norm_relu_cuda, "CUDA")
+OPS.impl("batch_norm_relu", batch_norm_relu_reference, "CPU")
+torch.library.register_fake("rdt::batch_norm_relu", _epilogue_fake, lib=OPS)
+# both operators launch kernel B, and count here
 scale_bias_relu.launches = 0

@@ -93,12 +93,21 @@ def test_artifact_equals_predict_and_jax(setup, artifacts, backend):
 
 @pytest.mark.parametrize("backend", ["sorted", "scatter"])
 def test_graph_holds_every_kernel_site(artifacts, backend):
-    """84 kernel-B sites (the flagship's eval-mode BN->ReLU) and one
-    z-buffer node of the backend's kernel, none of the other."""
-    targets = [str(n.target)
-               for n in torch.export.load(artifacts[backend][0]).graph.nodes
-               if n.op == "call_function"]
-    assert targets.count("rdt.scale_bias_relu.default") == 84
+    """84 kernel-B sites (the flagship's eval-mode BN->ReLU), each one
+    ``rdt.batch_norm_relu`` node fed by the BN's own lifted parameters and
+    buffers (the fold is inside the kernel: no ``rsqrt`` in front of it),
+    and one z-buffer node of the backend's kernel, none of the other. The
+    only ``rsqrt`` nodes are the 22 eval BNs without a ReLU (106 BNs in
+    all), which stay plain PyTorch."""
+    nodes = [n for n in torch.export.load(artifacts[backend][0]).graph.nodes
+             if n.op == "call_function"]
+    targets = [str(n.target) for n in nodes]
+    assert targets.count("rdt.batch_norm_relu.default") == 84
+    assert targets.count("rdt.scale_bias_relu.default") == 0
+    assert targets.count("aten.rsqrt.default") == 106 - 84
+    for n in nodes:
+        if str(n.target) == "rdt.batch_norm_relu.default":
+            assert all(a.op == "placeholder" for a in n.args[1:5])
     for b, op in ZBUFFER_OP.items():
         assert targets.count(op) == (1 if b == backend else 0)
 

@@ -246,3 +246,110 @@ def test_ops_build_at_first_use_on_card():
                           text=True, timeout=600,
                           cwd=str(Path(__file__).resolve().parent.parent))
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _flagship_sites(dev):
+    """(shape, has_residual) of every kernel-B site of one eval forward of
+    the flagship at B=8, 450x800, bfloat16 (the BatchNorm calls made with
+    relu=True)."""
+    from radar_depth_tpu_torch.models import (
+        BatchNorm,
+        create_model,
+        init_random,
+    )
+    from radar_depth_tpu_torch.ops.preprocess import pack_model_inputs
+
+    model, spec = create_model("resnet18_multistage", device="cpu",
+                               dtype=torch.bfloat16, output_size=(450, 800))
+    model = init_random(model, 0).to(dev)
+    seen = set()
+
+    def hook(module, args, kwargs):
+        if kwargs.get("relu"):
+            seen.add((tuple(args[0].shape),
+                      kwargs.get("residual") is not None))
+
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.register_forward_pre_hook(hook, with_kwargs=True)
+    prepared = {"rgb": torch.rand(8, 450, 800, 3, device=dev),
+                "radar": torch.rand(8, 450, 800, 1, device=dev) * 50}
+    with torch.inference_mode():
+        model(*pack_model_inputs(prepared, spec.input_kind))
+    return sorted(seen)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_both_epilogue_ops_at_every_flagship_site_on_card(dtype):
+    """rdt::batch_norm_relu (the BN folded in the kernel) and
+    rdt::scale_bias_relu against their plain versions at every (shape,
+    residual) of the flagship's eval forward at B=8, 450x800: bit-equal,
+    signed zeros aside; one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    import chip_smoke as cs
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    sites = _flagship_sites(dev)
+    assert len(sites) >= 10
+    for shape, has_res in sites:
+        x, r = (torch.randn(shape, generator=g, device=dev).to(
+            dtype, memory_format=torch.channels_last) for _ in range(2))
+        r = r if has_res else None
+        bn = cs.bn_params(torch, dev, g, shape[1])
+        scale, bias = kernels.fold_batch_norm(*bn, cs.EPS)
+        kernels.scale_bias_relu.launches = 0
+        got = kernels.batch_norm_relu(x, *bn, cs.EPS, r)
+        want = kernels.batch_norm_relu_reference(x, *bn, cs.EPS, r)
+        assert not cs.bits_differ(torch, got, want)[0].any(), shape
+        got = kernels.scale_bias_relu(x, scale, bias, r)
+        want = kernels.scale_bias_relu_reference(x, scale, bias, r)
+        assert not cs.bits_differ(torch, got, want)[0].any(), shape
+        assert kernels.scale_bias_relu.launches == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_epilogue_odd_channels_and_unaligned_view_on_card(dtype):
+    """A C that is not a multiple of the 16-byte lane count, and a view
+    whose data does not start on 16 bytes, each take one launch of kernel B
+    (its one-lane variant) and match the plain version bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    import chip_smoke as cs
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    odd = torch.randn(3, 37, 9, 11, generator=g, device=dev).to(
+        dtype, memory_format=torch.channels_last)
+    base = torch.randn(1 + 300 * 64, generator=g, device=dev).to(dtype)
+    unaligned = base[1:].view(300, 64)
+    assert unaligned.data_ptr() % 16 != 0
+    for x in (odd, unaligned):
+        c = x.shape[1] if x.dim() == 4 else x.shape[-1]
+        bn = cs.bn_params(torch, dev, g, c)
+        for res in (None, torch.randn(x.shape, generator=g, device=dev).to(
+                dtype, memory_format=torch.channels_last
+                if x.dim() == 4 else torch.contiguous_format)):
+            kernels.scale_bias_relu.launches = 0
+            got = kernels.batch_norm_relu(x, *bn, cs.EPS, res)
+            assert kernels.scale_bias_relu.launches == 1
+            want = kernels.batch_norm_relu_reference(x, *bn, cs.EPS, res)
+            assert not cs.bits_differ(torch, got, want)[0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", ["stem", "layer4"])
+def test_conv_then_kernel_b_race_on_card(site):
+    """Programmatic dependent launch: a cuDNN conv writes x and kernel B
+    reads it with nothing between them on the stream, 200 times, every
+    result bit-equal to the plain version (chip_smoke.epilogue_race_check,
+    which raises on a mismatch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    import chip_smoke
+
+    out = chip_smoke.epilogue_race_check(torch, torch.device("cuda"), site)
+    assert out["iters"] == 200 and out["mismatched_elements"] == 0

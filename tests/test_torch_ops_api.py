@@ -210,7 +210,7 @@ def test_device_trace_names_the_kernel_ops(tmp_path):
     with device_trace(str(tmp_path), device="cpu"):
         pred.predict(batch)
     text = next(tmp_path.glob("*.pt.trace.json")).read_text()
-    assert "rdt::scale_bias_relu" in text
+    assert "rdt::batch_norm_relu" in text
     assert "rdt::zbuffer_min_depth_sorted" in text
 
 

@@ -329,7 +329,8 @@ def test_export_cli(tiny_run, tmp_path, capsys):
     targets = [str(n.target) for n in graph.nodes if n.op == "call_function"]
     assert targets.count("rdt.zbuffer_min_depth.default") == 1
     assert targets.count("rdt.zbuffer_min_depth_sorted.default") == 0
-    assert targets.count("rdt.scale_bias_relu.default") == 21
+    assert targets.count("rdt.batch_norm_relu.default") == 21
+    assert targets.count("rdt.scale_bias_relu.default") == 0
     batch = SyntheticNuScenes(2, spec=SPEC, seed=3).batch(range(2))
     np.testing.assert_array_equal(
         load_serving(out, device="cpu")(batch),

@@ -178,18 +178,18 @@ SITES = [("resnet18_multistage", "upproj", 84),
 @pytest.mark.parametrize("arch,decoder,sites", SITES,
                          ids=[f"{a}-{d}" for a, d, _ in SITES])
 def test_kernel_b_sites_per_forward(arch, decoder, sites, monkeypatch):
-    """Kernel B's wrapper is reached once per eval-mode BN->ReLU site; on
-    the CPU it runs the plain version and launches nothing. Train mode
-    never reaches it."""
+    """Kernel B's wrapper (``batch_norm_relu``, the BN folded in the kernel)
+    is reached once per eval-mode BN->ReLU site; on the CPU it runs the
+    plain version and launches nothing. Train mode never reaches it."""
     calls = []
-    wrapped = kernels.scale_bias_relu
+    wrapped = kernels.batch_norm_relu
 
     def counting(*args, **kwargs):
         calls.append(tuple(args[0].shape))
         return wrapped(*args, **kwargs)
 
-    monkeypatch.setattr(kernels, "scale_bias_relu", counting)
-    wrapped.launches = 0
+    monkeypatch.setattr(kernels, "batch_norm_relu", counting)
+    kernels.scale_bias_relu.launches = 0
     model, spec = create_model(arch, device="cpu", decoder=decoder,
                                output_size=(32, 64))
     init_random(model, 0)
@@ -203,7 +203,7 @@ def test_kernel_b_sites_per_forward(arch, decoder, sites, monkeypatch):
     assert len(calls) == sites
     with torch.no_grad():
         model.train()(*inputs)
-    assert len(calls) == sites and wrapped.launches == 0
+    assert len(calls) == sites and kernels.scale_bias_relu.launches == 0
 
 
 def test_registry_is_the_jax_registry():
