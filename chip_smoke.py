@@ -28,6 +28,17 @@ Phases, each printing one JSON line:
                  path against the plain path on the card (TF32 off) and
                  against the CPU on a small input; img/s of both backends and
                  peak memory
+  precision      the port's float32 setting (device.py): TF32 switched on,
+                 then a default float32 flagship Predictor built with no
+                 context leaves IEEE convolutions and matmuls and cuDNN's
+                 deterministic algorithms; its B=8 predict bit-equal to the
+                 same forward under an explicit TF32-off context and to a
+                 second call (84 B + 1 C launches), beside the TF32 forward's
+                 difference; a float32 B=2 artifact against predict (rel RMSE
+                 <= 1e-6); in turns (ABBA), TF32 on against the port's
+                 setting in float32 served img/s and train-step img/s at
+                 B=8, and cuDNN's deterministic algorithms on against off in
+                 bfloat16 served img/s at B=8
   profile        device time by kernel category over one B=8 predict call,
                  its device events and device kernels, kernel B's device us
                  at each of its sites
@@ -113,7 +124,18 @@ Phases, each printing one JSON line:
                  the best stored row, Predictor.from_run against the
                  Trainer model's eval-mode prediction; epoch img/s, data and
                  device time per step, epoch walls, checkpoint size and save
-                 time, --evaluate img/s
+                 time, --evaluate img/s; then resnet50_multistage through
+                 train.main, one bfloat16 epoch of 16 packed samples at B=8
+                 and --evaluate of the run: epoch img/s, peak memory,
+                 checkpoint bytes, kernel B at 212 launches per eval forward
+  eval_two_stage python -m radar_depth_tpu_torch.eval_two_stage on the card:
+                 the float32 flagship of phase serve's weights saved as a
+                 port run over the harness's 16 val samples (day/night),
+                 --split all,day,night --batch 8: kernel B 84 and kernel C 1
+                 launch per batch, the JSON lines against the same tool with
+                 the Predictor's plain=True (metrics rtol 1e-4 + 5e-6,
+                 efficacy counts equal but for pixels near a threshold),
+                 img/s of a warm pass
   profile_harness  device time and idle share over one harness train epoch
   data_parallel  the data-parallel path (parallel/mesh.py) with the flagship
                  at full width: (a) a 1-rank NCCL group on card 0, 6 float32
@@ -822,19 +844,42 @@ KERNELS = {"A": "zbuffer_min_depth", "B": "scale_bias_relu",
 
 class tf32:
     """Context: TF32 for cuDNN convolutions and matmuls on or off, restored
-    on exit."""
+    on exit; through the flags the port sets (device.py::use_ieee_float32),
+    for the phase that holds the port's setting against an explicit one."""
 
     def __init__(self, torch, enabled):
         self.torch, self.enabled = torch, enabled
 
     def __enter__(self):
-        b = self.torch.backends
-        self.saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32)
-        b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = self.enabled
+        t = self.torch
+        self.saved = (t.backends.cudnn.allow_tf32,
+                      t.get_float32_matmul_precision())
+        t.backends.cudnn.allow_tf32 = self.enabled
+        t.set_float32_matmul_precision("high" if self.enabled else "highest")
 
     def __exit__(self, *exc):
-        b = self.torch.backends
-        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = self.saved
+        t = self.torch
+        t.backends.cudnn.allow_tf32 = self.saved[0]
+        t.set_float32_matmul_precision(self.saved[1])
+
+
+def float32_precision(torch) -> dict:
+    """The process's float32 settings as torch reads them back."""
+    b = torch.backends
+    return {"cudnn_allow_tf32": b.cudnn.allow_tf32,
+            "matmul_precision": torch.get_float32_matmul_precision(),
+            "cudnn_conv_fp32_precision": b.cudnn.conv.fp32_precision,
+            "cuda_matmul_fp32_precision": b.cuda.matmul.fp32_precision,
+            "cudnn_deterministic": b.cudnn.deterministic}
+
+
+def check_ieee(precision: dict, what: str) -> None:
+    """The port's setting: TF32 off for convolutions and matmuls."""
+    if (precision["cudnn_allow_tf32"]
+            or precision["matmul_precision"] != "highest"
+            or precision["cudnn_conv_fp32_precision"] == "tf32"
+            or precision["cuda_matmul_fp32_precision"] != "ieee"):
+        raise AssertionError(f"{what}: float32 precision {precision}")
 
 
 def serve_speed(preds, take, reps=6):
@@ -925,9 +970,8 @@ def phase_serve(torch, np, dev, batch, sd):
     # float32 parity on the card: kernel path vs plain path, TF32 off
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     b8 = take(0, B_SERVE)
-    with tf32(torch, False):
-        k32 = Predictor(cfg32, sd, device=dev).predict(b8)
-        p32 = Predictor(cfg32, sd, device=dev, plain=True).predict(b8)
+    k32 = Predictor(cfg32, sd, device=dev).predict(b8)
+    p32 = Predictor(cfg32, sd, device=dev, plain=True).predict(b8)
     parity = {"fp32_kernels_vs_plain_max_abs": float(np.abs(k32 - p32).max()),
               "fp32_kernels_vs_plain_rel_rmse": rel_rmse(np, k32, p32),
               "bf16_vs_fp32_plain_max_abs": float(np.abs(sample - p32).max()),
@@ -950,8 +994,7 @@ def phase_serve(torch, np, dev, batch, sd):
     sb = SyntheticNuScenes(2, spec=SampleSpec(height=64, width=96,
                                               num_sweeps=3, lidar_points=2048),
                            seed=4).batch(range(2))
-    with tf32(torch, False):
-        on_card = Predictor(small, ssd, device=dev).predict(sb)
+    on_card = Predictor(small, ssd, device=dev).predict(sb)
     on_cpu = Predictor(small, ssd, device="cpu").predict(sb)
     np.testing.assert_allclose(on_card, on_cpu, **SMALL_TOL)
     parity["small_card_vs_cpu_max_abs"] = float(np.abs(on_card - on_cpu).max())
@@ -964,6 +1007,149 @@ def phase_serve(torch, np, dev, batch, sd):
                                    for k, v in launches.items()},
           **speed, **parity})
     return launches, launches_scatter, speed, parity, pred, sites
+
+
+# ------------------------------------------------------- precision
+
+PRECISION_REPS = 8  # ABBA rounds of each cost measurement
+ARTIFACT32_BATCH = 2
+ARTIFACT32_REL_RMSE_TOL = 1e-6  # float32 artifact vs predict
+
+
+def phase_precision(torch, np, dev, batch, sd, pred_bf16):
+    """The port's float32 setting (device.py): with TF32 switched on first,
+    a default float32 flagship Predictor built with no context sets IEEE
+    float32 and cuDNN's deterministic algorithms, its B=8 predict is
+    bit-equal to the same forward under an explicit TF32-off context and
+    to a second call, and a float32 B=2 artifact matches predict. The costs,
+    in turns (ABBA): TF32 on against the port's setting, served float32
+    img/s at B=8 and float32 B=8 train-step img/s (phase train's cuDNN
+    algorithms); cuDNN's deterministic algorithms on against off, served
+    bfloat16 img/s at B=8 (phase serve's Predictor)."""
+    import tempfile
+
+    from radar_depth_tpu_torch.config import ServeConfig
+    from radar_depth_tpu_torch.inference import Predictor, load_serving
+
+    take = lambda lo, hi: {k: v[lo:hi] for k, v in batch.items()}
+    b8 = take(0, B_SERVE)
+    out = {"phase": "precision"}
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cudnn.deterministic = False
+    out["before"] = float32_precision(torch)
+    cfg = ServeConfig(arch="resnet18_multistage", decoder="upproj",
+                      height=H, width=W, num_sweeps=5)
+    if cfg.dtype != "float32":
+        raise AssertionError("the serving default dtype is float32")
+    pred = Predictor(cfg, sd, device=dev)
+    out["after_predictor"] = float32_precision(torch)
+    check_ieee(out["after_predictor"], "precision: a float32 Predictor")
+    if not out["after_predictor"]["cudnn_deterministic"]:
+        raise AssertionError("the Predictor leaves cuDNN's deterministic "
+                             "algorithms off")
+
+    pred.predict(b8)  # warm-up: cuDNN set-up
+    reset_launches()
+    first = pred.predict(b8)
+    launches = read_launches()
+    want = {KERNELS["A"]: 0, KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD,
+            KERNELS["C"]: 1}
+    if launches != want:
+        raise AssertionError(f"precision launches {launches}, "
+                             f"expected {want}")
+    second = pred.predict(b8)
+    with tf32(torch, False):
+        explicit = pred.predict(b8)
+    with tf32(torch, True):
+        tf32_on = pred.predict(b8)
+    out.update({
+        "launches": launches,
+        "bit_equal_explicit_tf32_off": bool(np.array_equal(first, explicit)),
+        "repeat_bit_equal": bool(np.array_equal(first, second)),
+        "repeat_max_abs": float(np.abs(first - second).max()),
+        "tf32_on_vs_ieee_rel_rmse": rel_rmse(np, tf32_on, first),
+        "tf32_on_vs_ieee_max_abs": float(np.abs(tf32_on - first).max())})
+
+    tmp = tempfile.mkdtemp(prefix="rdt-precision-")
+    try:
+        path = os.path.join(tmp, "float32.pt2")
+        t0 = time.perf_counter()
+        pred.export_serving(path, ARTIFACT32_BATCH)
+        export_s = time.perf_counter() - t0
+        serve = load_serving(path)
+        b2 = take(0, ARTIFACT32_BATCH)
+        got, want_b2 = serve(b2), pred.predict(b2)
+        del serve
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["artifact_float32_b2"] = {
+        "export_s": export_s, "bit_equal": bool(np.array_equal(got, want_b2)),
+        "rel_rmse": rel_rmse(np, got, want_b2),
+        "max_abs": float(np.abs(got - want_b2).max())}
+    out["after_load_serving"] = float32_precision(torch)
+    check_ieee(out["after_load_serving"], "precision: after load_serving")
+
+    def served(p, ctx):
+        def fn():
+            with ctx:
+                p.predict(b8)
+        return fn
+
+    def turns(fns):
+        for fn in fns.values():  # each arm's cuDNN set-up, untimed
+            fn()
+        return abba(fns, PRECISION_REPS)
+
+    times = turns({"tf32_on": served(pred, tf32(torch, True)),
+                   "ieee": served(pred, tf32(torch, False))})
+    out["serve_float32_b8"] = {k: {"img_per_s": B_SERVE
+                                   / statistics.median(v),
+                                   "ms_all": [t * 1e3 for t in v]}
+                               for k, v in times.items()}
+    del pred
+    times = turns({"deterministic": served(pred_bf16,
+                                           deterministic_cudnn(torch, True)),
+                   "default": served(pred_bf16,
+                                     deterministic_cudnn(torch, False))})
+    out["serve_bfloat16_b8_cudnn"] = {
+        k: {"img_per_s": B_SERVE / statistics.median(v),
+            "ms_all": [t * 1e3 for t in v]} for k, v in times.items()}
+
+    model, spec, state, step = train_setup(torch, train_config("float32"),
+                                           dev)
+    gen = torch.Generator(device=dev)
+
+    def train_step(ctx):
+        def fn():
+            gen.manual_seed(0)
+            with ctx, deterministic_cudnn(torch, False):
+                float(step(state, b8, generator=gen)["loss"])
+        return fn
+
+    times = turns({"tf32_on": train_step(tf32(torch, True)),
+                   "ieee": train_step(tf32(torch, False))})
+    out["train_float32_b8"] = {k: {"img_per_s": B_TRAIN
+                                   / statistics.median(v),
+                                   "ms_all": [t * 1e3 for t in v]}
+                               for k, v in times.items()}
+    del model, state, step
+    torch.cuda.empty_cache()
+    out["end"] = float32_precision(torch)
+    check_ieee(out["end"], "precision: at the end of the phase")
+    emit(out)
+    if not out["bit_equal_explicit_tf32_off"]:
+        raise AssertionError("the default float32 Predictor differs from "
+                             "the same forward with TF32 explicitly off")
+    if not out["repeat_bit_equal"]:
+        raise AssertionError("two float32 predict calls differ by "
+                             f"{out['repeat_max_abs']}")
+    if out["artifact_float32_b2"]["rel_rmse"] > ARTIFACT32_REL_RMSE_TOL:
+        raise AssertionError(f"float32 artifact vs predict "
+                             f"{out['artifact_float32_b2']}")
+    return out
 
 
 # ------------------------------------------------------- HTTP daemon
@@ -1522,87 +1708,92 @@ def phase_train(torch, np, dev, batch):
 
     take = lambda lo, hi: {k: v[lo:hi] for k, v in batch.items()}
     b8 = take(0, B_TRAIN)
-    out = {"batch": B_TRAIN, "steps": TRAIN_STEPS, "tf32": False}
+    out = {"batch": B_TRAIN, "steps": TRAIN_STEPS,
+           "tf32": torch.backends.cudnn.allow_tf32}
     launches, trained = {}, {}
-    with tf32(torch, False):
-        for dtype in ("float32", "bfloat16"):
-            cfg = train_config(dtype)
-            model, spec, state, step = train_setup(torch, cfg, dev)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            reset_launches()
-            losses, times = run_steps(torch, dev, step, state, b8, TRAIN_STEPS)
-            launches[dtype] = read_launches()
-            want = {KERNELS["A"]: 0, KERNELS["B"]: 0,
-                    KERNELS["C"]: TRAIN_STEPS}
-            if launches[dtype] != want:
-                raise AssertionError(f"train {dtype}: launches "
-                                     f"{launches[dtype]}, expected {want}")
-            if not all(math.isfinite(x) for x in losses):
-                raise AssertionError(f"train {dtype}: losses {losses}")
-            if not losses[-1] < losses[0]:
-                raise AssertionError(f"train {dtype}: loss did not fall "
-                                     f"{losses}")
-            out[dtype] = {
-                "losses": losses, "step_ms": [t * 1e3 for t in times],
-                "img_per_s": B_TRAIN / statistics.median(times[1:]),
-                "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
-            trained[dtype] = (model, spec, state, step)
-
-        # gt_augment="rerasterize": the LiDAR GT goes through kernel C too
-        cfg = train_config("float32", gt_augment="rerasterize")
+    for dtype in ("float32", "bfloat16"):
+        cfg = train_config(dtype)
         model, spec, state, step = train_setup(torch, cfg, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         reset_launches()
-        losses, _ = run_steps(torch, dev, step, state, b8, 3)
-        launches["rerasterize"] = read_launches()
-        want = {KERNELS["A"]: 0, KERNELS["B"]: 0, KERNELS["C"]: 6}
-        if launches["rerasterize"] != want:
-            raise AssertionError(f"rerasterize launches "
-                                 f"{launches['rerasterize']}, expected {want}")
+        # the bare step as in a fresh process: cuDNN's default algorithms
+        # (the Predictors built before set the deterministic ones
+        # process-wide; phase harness times the step with those)
+        with deterministic_cudnn(torch, False):
+            losses, times = run_steps(torch, dev, step, state, b8,
+                                      TRAIN_STEPS)
+        launches[dtype] = read_launches()
+        want = {KERNELS["A"]: 0, KERNELS["B"]: 0,
+                KERNELS["C"]: TRAIN_STEPS}
+        if launches[dtype] != want:
+            raise AssertionError(f"train {dtype}: launches "
+                                 f"{launches[dtype]}, expected {want}")
         if not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"rerasterize losses {losses}")
-        out["rerasterize"] = {"losses": losses}
-        del model, state, step
+            raise AssertionError(f"train {dtype}: losses {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train {dtype}: loss did not fall "
+                                 f"{losses}")
+        out[dtype] = {
+            "losses": losses, "step_ms": [t * 1e3 for t in times],
+            "img_per_s": B_TRAIN / statistics.median(times[1:]),
+            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        trained[dtype] = (model, spec, state, step)
 
-        # kernel path against the plain path on the card, one float32 step
-        cfg = train_config("float32")
-        sd = train_init(torch, train_setup(torch, cfg, "cpu")[0], 1).state_dict()
-        from radar_depth_tpu_torch.train.step import make_train_step
+    # gt_augment="rerasterize": the LiDAR GT goes through kernel C too
+    cfg = train_config("float32", gt_augment="rerasterize")
+    model, spec, state, step = train_setup(torch, cfg, dev)
+    reset_launches()
+    losses, _ = run_steps(torch, dev, step, state, b8, 3)
+    launches["rerasterize"] = read_launches()
+    want = {KERNELS["A"]: 0, KERNELS["B"]: 0, KERNELS["C"]: 6}
+    if launches["rerasterize"] != want:
+        raise AssertionError(f"rerasterize launches "
+                             f"{launches['rerasterize']}, expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"rerasterize losses {losses}")
+    out["rerasterize"] = {"losses": losses}
+    del model, state, step
 
-        runs = {}
-        for plain in (False, True):
-            model, spec, state, _ = train_setup(torch, cfg, dev,
+    # kernel path against the plain path on the card, one float32 step
+    cfg = train_config("float32")
+    sd = train_init(torch, train_setup(torch, cfg, "cpu")[0], 1).state_dict()
+    from radar_depth_tpu_torch.train.step import make_train_step
+
+    runs = {}
+    for plain in (False, True):
+        model, spec, state, _ = train_setup(torch, cfg, dev,
+                                            state_dict=sd)
+        step = make_train_step(model, spec, cfg, plain=plain)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        runs[plain] = (model, step(state, b8, generator=gen))
+    before = {k: v.double() for k, v in sd.items()}
+    out["kernels_vs_plain"] = compare_steps(
+        np, before, runs[False][0], runs[True][0], runs[False][1],
+        runs[True][1], "train kernels vs plain")
+    del runs
+
+    # small input: the card's kernel path against the CPU's plain path
+    small = train_config("float32", height=64, width=96, sweeps=3)
+    sb = SyntheticNuScenes(2, spec=SampleSpec(height=64, width=96,
+                                              num_sweeps=3,
+                                              lidar_points=2048),
+                           seed=4).batch(range(2))
+    sd = train_init(torch, train_setup(torch, small, "cpu")[0],
+                    2).state_dict()
+    aug = sample_affine_params(torch.Generator().manual_seed(4),
+                               AugmentConfig(), 2)
+    runs = {}
+    for device in (dev, "cpu"):
+        with torch.backends.mkldnn.flags(enabled=False):
+            model, _, state, step = train_setup(torch, small, device,
                                                 state_dict=sd)
-            step = make_train_step(model, spec, cfg, plain=plain)
-            gen = torch.Generator(device=dev).manual_seed(3)
-            runs[plain] = (model, step(state, b8, generator=gen))
-        before = {k: v.double() for k, v in sd.items()}
-        out["kernels_vs_plain"] = compare_steps(
-            np, before, runs[False][0], runs[True][0], runs[False][1],
-            runs[True][1], "train kernels vs plain")
-        del runs
-
-        # small input: the card's kernel path against the CPU's plain path
-        small = train_config("float32", height=64, width=96, sweeps=3)
-        sb = SyntheticNuScenes(2, spec=SampleSpec(height=64, width=96,
-                                                  num_sweeps=3,
-                                                  lidar_points=2048),
-                               seed=4).batch(range(2))
-        sd = train_init(torch, train_setup(torch, small, "cpu")[0],
-                        2).state_dict()
-        aug = sample_affine_params(torch.Generator().manual_seed(4),
-                                   AugmentConfig(), 2)
-        runs = {}
-        for device in (dev, "cpu"):
-            with torch.backends.mkldnn.flags(enabled=False):
-                model, _, state, step = train_setup(torch, small, device,
-                                                    state_dict=sd)
-                runs[str(device)] = (model, step(state, sb, aug_params=aug))
-        before = {k: v.double() for k, v in sd.items()}
-        out["small_card_vs_cpu"] = compare_steps(
-            np, before, runs[str(dev)][0], runs["cpu"][0],
-            runs[str(dev)][1], runs["cpu"][1], "train card vs CPU")
-        del runs
+            runs[str(device)] = (model, step(state, sb, aug_params=aug))
+    before = {k: v.double() for k, v in sd.items()}
+    out["small_card_vs_cpu"] = compare_steps(
+        np, before, runs[str(dev)][0], runs["cpu"][0],
+        runs[str(dev)][1], runs["cpu"][1], "train card vs CPU")
+    del runs
 
     # B=32 in bfloat16, if it fits (TF32 does not apply to bfloat16)
     b32 = {k: np.concatenate([v, v[:32 - len(v)]]) for k, v in batch.items()}
@@ -1630,13 +1821,12 @@ def phase_eval(torch, np, dev, batch, trained):
     cfg = train_config("float32")
     b8 = {k: v[:B_TRAIN] for k, v in batch.items()}
     eval_step = make_eval_step(model, spec, cfg)
-    with tf32(torch, False):
-        eval_step(b8)  # warm-up
-        reset_launches()
-        got = eval_step(b8)
-        torch.cuda.synchronize()
-        launches = read_launches()
-        want = make_eval_step(model, spec, cfg, plain=True)(b8)
+    eval_step(b8)  # warm-up
+    reset_launches()
+    got = eval_step(b8)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = make_eval_step(model, spec, cfg, plain=True)(b8)
     expect = {KERNELS["A"]: 0, KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD,
               KERNELS["C"]: 1}
     if launches != expect:
@@ -1824,7 +2014,8 @@ def phase_host_fold_abba(torch, np, pred, batch, reps=6):
 
 
 def phase_profile_train(torch, dev, trained, batch):
-    """One B=8 train step of each dtype (float32 with TF32 off)."""
+    """One B=8 train step of each dtype (float32 with TF32 off), with
+    phase train's cuDNN algorithms."""
     b8 = {k: v[:B_TRAIN] for k, v in batch.items()}
     gen = torch.Generator(device=dev)
     out = {}
@@ -1833,7 +2024,7 @@ def phase_profile_train(torch, dev, trained, batch):
             gen.manual_seed(0)
             step(state, b8, generator=gen)
 
-        with tf32(torch, False):
+        with deterministic_cudnn(torch, False):
             out[dtype] = profile_device(torch, one_step,
                                         f"profile_train_{dtype}", B_TRAIN)
     return out
@@ -1955,9 +2146,8 @@ def zoo_serve(torch, np, dev, entry, batch):
     torch.cuda.empty_cache()
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    with tf32(torch, False):
-        k32 = Predictor(cfg32, sd, device=dev).predict(b8)
-        p32 = Predictor(cfg32, sd, device=dev, plain=True).predict(b8)
+    k32 = Predictor(cfg32, sd, device=dev).predict(b8)
+    p32 = Predictor(cfg32, sd, device=dev, plain=True).predict(b8)
     torch.cuda.empty_cache()
     r.update({"fp32_kernels_vs_plain_max_abs": float(np.abs(k32 - p32).max()),
               "fp32_kernels_vs_plain_rel_rmse": rel_rmse(np, k32, p32),
@@ -2221,11 +2411,11 @@ def check_run_dir(run_dir, epochs, cfg):
     return best, steps
 
 
-def harness_argv(data):
+def harness_argv(data, arch="resnet18_multistage", dtype="bfloat16"):
     """train.main's flags of the harness phase, on the packed shards in
     ``data``."""
-    return ["--arch", "resnet18_multistage", "--decoder", "upproj",
-            "--dtype", "bfloat16", "-b", str(B_TRAIN),
+    return ["--arch", arch, "--decoder", "upproj",
+            "--dtype", dtype, "-b", str(B_TRAIN),
             "--dataset", "packed", "--data-root", data,
             "--height", str(H), "--width", str(W), "--num-sweeps", "5",
             "--print-freq", "100"]
@@ -2375,6 +2565,213 @@ def phase_harness(torch, np, dev, bare_step, tmp):
     return out, prof
 
 
+# The zoo through the Trainer: resnet50_multistage, one bf16 epoch of
+# ZOO_TRAINER_TRAIN packed samples, validated on the harness's val split.
+ZOO_TRAINER_ARCH = "resnet50_multistage"
+ZOO_TRAINER_TRAIN = 16
+ZOO_TRAINER_SITES = 212  # kernel B sites per resnet50_multistage forward
+
+
+def checkpoint_bytes(run_dir) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(os.path.join(run_dir, "checkpoints"))
+               for f in files)
+
+
+def phase_harness_zoo(torch, tmp):
+    """ZOO_TRAINER_ARCH through train.main on the card (bfloat16, B=8,
+    450x800): one epoch on ZOO_TRAINER_TRAIN packed samples with the
+    harness's val split, then --evaluate of the run, both counted."""
+    from radar_depth_tpu_torch.data import SampleSpec, SyntheticNuScenes
+    from radar_depth_tpu_torch.data.packed import write_shards
+    from radar_depth_tpu_torch.train.main import run
+
+    data = os.path.join(tmp, "zoo_data")
+    ds = SyntheticNuScenes(ZOO_TRAINER_TRAIN, seed=2,
+                           spec=SampleSpec(height=H, width=W, num_sweeps=5))
+    write_shards(os.path.join(data, "train"),
+                 (ds[i] for i in range(ZOO_TRAINER_TRAIN)))
+    os.symlink(os.path.join(tmp, "data", "val"), os.path.join(data, "val"))
+    run_dir = os.path.join(tmp, "zoo_run")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with count_by_phase() as phases:
+        r = run(harness_argv(data, ZOO_TRAINER_ARCH)
+                + ["--epochs", "1", "--output-dir", run_dir])
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    h = r["history"][0]
+    steps = h["train"]["steps"]
+    train, val = phases.counts["train_epoch"], phases.counts["validate"]
+    if (steps != ZOO_TRAINER_TRAIN // B_TRAIN
+            or train != {KERNELS["A"]: 0, KERNELS["B"]: 0,
+                         KERNELS["C"]: steps}
+            or val[KERNELS["B"]] != ZOO_TRAINER_SITES * val[KERNELS["C"]]
+            or not math.isfinite(h["train"]["loss"])
+            or not math.isfinite(h["val"]["rmse"])):
+        raise AssertionError(f"{ZOO_TRAINER_ARCH} Trainer: {steps} steps, "
+                             f"launches {phases.counts}, {h}")
+    reset_launches()
+    t0 = time.perf_counter()
+    ev = run(["--evaluate", run_dir, "--output-dir",
+              os.path.join(tmp, "zoo_eval"), "--print-freq", "100"])
+    eval_s = time.perf_counter() - t0
+    ev_launches = read_launches()
+    forwards = ev_launches[KERNELS["C"]]
+    if (forwards < math.ceil(HARNESS_VAL / B_TRAIN)
+            or ev_launches[KERNELS["B"]] != ZOO_TRAINER_SITES * forwards
+            or not math.isfinite(ev["validation"]["rmse"])):
+        raise AssertionError(f"{ZOO_TRAINER_ARCH} --evaluate: launches "
+                             f"{ev_launches}, {ev['validation']}")
+    out = {"phase": "harness", "config": ZOO_TRAINER_ARCH,
+           "dtype": "bfloat16", "batch": B_TRAIN, "hw": [H, W],
+           "samples": [ZOO_TRAINER_TRAIN, HARNESS_VAL], "train_steps": steps,
+           "fit_1_epoch_s": fit_s, "walls_s": h["walls"],
+           "img_per_s": steps * B_TRAIN / h["walls"]["train"],
+           "loss": h["train"]["loss"], "val_rmse": h["val"]["rmse"],
+           "peak_mem_gib": peak, "launches_by_phase": phases.counts,
+           "kernel_B_launches_per_eval_forward":
+               val[KERNELS["B"]] / val[KERNELS["C"]],
+           "checkpoint_bytes": checkpoint_bytes(run_dir),
+           "checkpoints": r["saves"],
+           "evaluate": {"call_s": eval_s, "launches": ev_launches,
+                        "kernel_B_launches_per_forward":
+                            ev_launches[KERNELS["B"]] / forwards,
+                        "rmse": ev["validation"]["rmse"]}}
+    emit(out)
+    return out
+
+
+# ------------------------------------------------- coarse vs refined
+
+TWO_STAGE_SPLITS = "all,day,night"
+TIE = 1e-3  # |radar - coarse| this close to a threshold may flip the filter
+
+
+def two_stage_json(out: str) -> list:
+    return [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+
+
+def phase_eval_two_stage(torch, np, dev, tmp, sd):
+    """python -m radar_depth_tpu_torch.eval_two_stage on the card: the
+    float32 flagship of phase serve's seeded weights saved as a port run
+    (no training) over the harness's val split (HARNESS_VAL samples at
+    450x800, 5 sweeps, day/night), --split all,day,night --batch 8; its
+    main counted (kernel B at 84 and kernel C at 1 launch per batch), and
+    its JSON lines against the same tool run with the Predictor's
+    plain=True (metrics rtol 1e-4 plus the rounding's 5e-6; efficacy counts
+    equal, the kept ones within the pixels near a threshold); img/s of a
+    warm pass over the whole split."""
+    import contextlib
+    import io
+
+    from radar_depth_tpu_torch import config as cfg_lib
+    from radar_depth_tpu_torch import eval_two_stage
+    from radar_depth_tpu_torch.models import create_model
+    from radar_depth_tpu_torch.parallel.mesh import pad_batch_to
+    from radar_depth_tpu_torch.train import checkpoint as ckpt_lib
+    from radar_depth_tpu_torch.train.state import create_train_state
+
+    data = os.path.join(tmp, "data")  # phase harness's shards
+    run_dir = os.path.join(tmp, "two_stage_run")
+    os.makedirs(run_dir)
+    cfg = cfg_lib.parse_command(harness_argv(data, dtype="float32")
+                                + ["--output-dir", run_dir])
+    cfg_lib.save_config(cfg, os.path.join(run_dir, "config.json"))
+    model = create_model(cfg.model.arch, device="cpu", output_size=(H, W),
+                         param_dtype=torch.float32)[0]
+    model.load_state_dict(sd)
+    ckpt_lib.CheckpointManager(run_dir).save(
+        0, create_train_state(model, cfg.optim, 2), {"rmse": 3.0}, wait=True)
+    del model
+    argv = ["--run", run_dir, "--data-root", data, "--split",
+            TWO_STAGE_SPLITS, "--batch", str(B_TRAIN)]
+    splits = TWO_STAGE_SPLITS.split(",")
+
+    # a warm pass over the whole split, timed; the pixels near a threshold
+    ev = eval_two_stage.TwoStageEval(eval_two_stage.parse_args(argv))
+    ev.split("all")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev.split("all")
+    img_per_s = len(ev.ds) / (time.perf_counter() - t0)
+    a = ev.args
+    ties, batches = {}, 0
+    for split in splits:
+        idx = [i for i in range(len(ev.ds))
+               if split == "all" or ev.ds.sample_tag(i) == split]
+        ties[split] = 0
+        for i0 in range(0, len(idx), a.batch):
+            batches += 1
+            b, _ = pad_batch_to(ev.ds.batch(idx[i0:i0 + a.batch]), a.batch)
+            coarse, _, target, radar, _ = ev.infer_both(b)
+            limit = (a.abs_threshold if a.filter_mode == "abs"
+                     else a.rel_threshold * coarse.clamp_min(1e-3))
+            near = ((radar > 0) & (target > 0)
+                    & (((radar - coarse).abs() - limit).abs() < TIE))
+            ties[split] += int(near.sum())
+    ev.ds.close()
+    del ev
+
+    outs = {}
+    for plain in (False, True):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = eval_two_stage.main(argv, plain=plain)
+        outs[plain] = {"rc": rc, "s": time.perf_counter() - t0,
+                       "launches": read_launches(), "text": buf.getvalue(),
+                       "json": two_stage_json(buf.getvalue())}
+    got, want = outs[False], outs[True]
+    per_batch = {k: v / batches for k, v in got["launches"].items()}
+    if (got["rc"] != 0 or want["rc"] != 0
+            or per_batch != {KERNELS["A"]: 0,
+                             KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD,
+                             KERNELS["C"]: 1}
+            or any(want["launches"].values())
+            or len(got["json"]) != len(splits)
+            or len(want["json"]) != len(splits)):
+        raise AssertionError(
+            f"eval_two_stage: {batches} batches, rc {got['rc']} (plain "
+            f"{want['rc']}), launches {got['launches']} (plain "
+            f"{want['launches']})\n{got['text'][-2000:]}")
+    diff = {}
+    for split, m, w in zip(splits, got["json"], want["json"]):
+        err = 0.0
+        for name in ("coarse", "refined", "coarse_radar_local",
+                     "refined_radar_local"):
+            for k, v in w[name].items():
+                if abs(m[name][k] - v) > 5e-6 + 1e-4 * abs(v):
+                    raise AssertionError(f"eval_two_stage {split} {name} "
+                                         f"{k}: {m[name][k]} vs plain {v}")
+                err = max(err, abs(m[name][k] - v))
+        e, f = m["filter_efficacy"], w["filter_efficacy"]
+        if (list(e) != list(f)
+                or any(e[k] != f[k] for k in ("radar_px", "gt_px",
+                                              "corrupt_px", "clean_px"))
+                or any(abs(e[k] - f[k]) > ties[split]
+                       for k in ("corrupt_kept", "clean_kept"))):
+            raise AssertionError(f"eval_two_stage {split} efficacy {e} vs "
+                                 f"plain {f} ({ties[split]} near a "
+                                 "threshold)")
+        diff[split] = {"metrics_max_abs": err,
+                       "efficacy_equal": e == f, "near_threshold_px":
+                           ties[split]}
+    out = {"phase": "eval_two_stage", "arch": cfg.model.arch,
+           "dtype": cfg.model.dtype, "hw": [H, W], "batch": B_TRAIN,
+           "splits": splits, "batches": batches, "img_per_s": img_per_s,
+           "main_s": got["s"], "plain_main_s": want["s"],
+           "launches": got["launches"], "launches_per_batch": per_batch,
+           "json": dict(zip(splits, got["json"])),
+           "vs_plain": diff}
+    emit(out)
+    return out
+
+
 # ------------------------------------------------------ data parallelism
 
 DP_STEPS = 6  # steps of each path in (a); img/s is the median after the first
@@ -2449,15 +2846,15 @@ def mesh_from_env(port, **kw):
 
 
 class deterministic_cudnn:
-    """Context: cuDNN's deterministic algorithms (the Trainer's), restored
-    on exit."""
+    """Context: cuDNN's deterministic algorithms (the Trainer's and the
+    Predictor's) on, or off, restored on exit."""
 
-    def __init__(self, torch):
-        self.torch = torch
+    def __init__(self, torch, enabled=True):
+        self.torch, self.enabled = torch, enabled
 
     def __enter__(self):
         self.saved = self.torch.backends.cudnn.deterministic
-        self.torch.backends.cudnn.deterministic = True
+        self.torch.backends.cudnn.deterministic = self.enabled
 
     def __exit__(self, *exc):
         self.torch.backends.cudnn.deterministic = self.saved
@@ -2481,7 +2878,7 @@ def dp_worker(root) -> int:
     rows = pm.local_rows(dict(np.load(os.path.join(root, "batch.npz"))),
                          mesh)
     cfg = train_config("float32")
-    with tf32(torch, False), deterministic_cudnn(torch):
+    with deterministic_cudnn(torch):
         model, spec, state, _ = train_setup(torch, cfg, dev, state_dict=sd)
         step = make_train_step(model, spec, cfg, mesh=mesh)
         torch.cuda.synchronize()
@@ -2563,7 +2960,7 @@ def phase_data_parallel(torch, np, dev, batch, tmp):
         raise AssertionError(f"data_parallel mesh {mesh}")
     a, dp_launches = {}, {k: 0 for k in KERNELS.values()}
     try:
-        with tf32(torch, False), deterministic_cudnn(torch):
+        with deterministic_cudnn(torch):
             for dtype in ("float32", "bfloat16"):
                 cfg = train_config(dtype)
                 plain = dp_steps(torch, dev, cfg, sd, b8, None)
@@ -2649,7 +3046,7 @@ def phase_data_parallel(torch, np, dev, batch, tmp):
         rec = json.loads([x for x in o.splitlines() if x.startswith("{")][-1])
         lines[rec["rank"]] = rec
     cfg = train_config("float32")
-    with tf32(torch, False), deterministic_cudnn(torch):
+    with deterministic_cudnn(torch):
         model, spec, state, step = train_setup(torch, cfg, dev,
                                                state_dict=sd)
         ref = step(state, b8,
@@ -2764,7 +3161,7 @@ def spatial_worker(root) -> int:
                 "halo_host_ms": sp.HALO["seconds"] * 1e3}
 
     cfg = train_config("float32")
-    with tf32(torch, False), deterministic_cudnn(torch):
+    with deterministic_cudnn(torch):
         pred = Predictor(serve_config(cfg), sd, mesh=mesh)
         counted()
         depth = pred.predict(b8)
@@ -2802,6 +3199,7 @@ def spatial_worker(root) -> int:
         del model, state, step
     torch.cuda.empty_cache()
     out["bf16"] = spatial_bf16_steps(torch, dev, sd, b8, mesh)
+    out["float32_precision"] = float32_precision(torch)
     print(json.dumps(out), flush=True)
     mesh.barrier()
     pm.destroy_mesh(mesh)
@@ -2863,7 +3261,7 @@ def phase_spatial(torch, np, dev, batch, tmp):
     # the single-process references, the card to itself
     with deterministic_cudnn(torch):
         plain_bf16 = spatial_bf16_steps(torch, dev, sd, b8, None)
-    with tf32(torch, False), deterministic_cudnn(torch):
+    with deterministic_cudnn(torch):
         ref_depth = Predictor(serve_config(cfg), sd, device=dev,
                               plain=True).predict(b8)
         model, spec, _, _ = train_setup(torch, cfg, dev, state_dict=sd)
@@ -2903,6 +3301,10 @@ def phase_spatial(torch, np, dev, batch, tmp):
         lines[rec["rank"]] = rec
     if sorted(lines) != list(range(SPATIAL)):
         raise AssertionError(f"spatial ranks {sorted(lines)}")
+    for r, rec in lines.items():  # what the rank's entry points set
+        check_ieee(rec["float32_precision"], f"spatial rank {r}")
+    out["float32_precision_per_rank"] = [lines[r]["float32_precision"]
+                                         for r in range(SPATIAL)]
 
     # (a) the forward: each rank the whole map, the plain path's
     depths = [np.load(os.path.join(root, f"pred-{r}.npy"))
@@ -3009,19 +3411,20 @@ def serve_spatial_worker(root, port) -> int:
     mesh = pm.make_spatial_mesh(SPATIAL, backend="gloo")  # dp_env
     sd = torch.load(os.path.join(root, "weights.pt"), map_location="cpu",
                     weights_only=True)
-    with tf32(torch, False):
-        pred = Predictor(serve_config(train_config("float32")), sd,
-                         mesh=mesh)
-        torch.cuda.synchronize()
-        reset_launches()
-        srv = run_daemon(pred, "127.0.0.1", port, max_tile=SERVE_TILE,
-                         batch_window_ms=HTTP_WINDOW_MS)
-        torch.cuda.synchronize()
+    pred = Predictor(serve_config(train_config("float32")), sd,
+                     mesh=mesh)
+    torch.cuda.synchronize()
+    reset_launches()
+    srv = run_daemon(pred, "127.0.0.1", port, max_tile=SERVE_TILE,
+                     batch_window_ms=HTTP_WINDOW_MS)
+    torch.cuda.synchronize()
     print(json.dumps({"rank": mesh.rank, "leader": srv.is_leader,
                       "dispatches": srv.dispatch_count,
                       "predict_calls": srv.predict_calls,
                       "launches": read_launches(),
-                      "broadcast": srv.broadcast}), flush=True)
+                      "broadcast": srv.broadcast,
+                      "float32_precision": float32_precision(torch)}),
+          flush=True)
     pm.destroy_mesh(mesh)
     return 0
 
@@ -3040,12 +3443,11 @@ def phase_serve_http_spatial(torch, np, dev, batch, tmp, coalesced):
     sd = torch.load(os.path.join(root, "weights.pt"), map_location="cpu",
                     weights_only=True)
     take = lambda lo, hi: {k: v[lo:hi] for k, v in batch.items()}
-    with tf32(torch, False):
-        ref_pred = Predictor(serve_config(train_config("float32")), sd,
-                             device=dev)
-        ref8 = ref_pred.predict(take(0, B_SERVE), max_tile=SERVE_TILE)
-        ref1 = [ref_pred.predict(take(i, i + 1), max_tile=SERVE_TILE)
-                for i in range(B_SERVE)]
+    ref_pred = Predictor(serve_config(train_config("float32")), sd,
+                         device=dev)
+    ref8 = ref_pred.predict(take(0, B_SERVE), max_tile=SERVE_TILE)
+    ref1 = [ref_pred.predict(take(i, i + 1), max_tile=SERVE_TILE)
+            for i in range(B_SERVE)]
     del ref_pred
     torch.cuda.empty_cache()
 
@@ -3165,6 +3567,11 @@ def phase_serve_http_spatial(torch, np, dev, batch, tmp, coalesced):
                    or r["predict_calls"] != leader["predict_calls"]
                    for r in lines[1:])):
         raise AssertionError(f"serve over ranks: {lines}")
+    for r, rec in enumerate(lines):  # what the rank's entry points set
+        check_ieee(rec["float32_precision"], f"serve_http_spatial rank {r}")
+        if not rec["float32_precision"]["cudnn_deterministic"]:
+            raise AssertionError(f"serve_http_spatial rank {r}: cuDNN's "
+                                 "default algorithms")
     bc = leader["broadcast"]
     out.update({
         "ranks": lines, "launches_per_rank_per_predict": per_call,
@@ -3272,6 +3679,8 @@ def main(argv=None) -> int:
     launches, launches_sc, speed, parity, pred, sites = phase_serve(
         torch, np, dev, batch, sd)
     lap("serve")
+    precision = phase_precision(torch, np, dev, batch, sd, pred)
+    lap("precision")
     prof, kernel_b_us_by_site = phase_profile(
         torch, pred, {k: v[:B_SERVE] for k, v in batch.items()}, sites)
     lap("profile")
@@ -3307,6 +3716,10 @@ def main(argv=None) -> int:
         harness, prof_harness = phase_harness(
             torch, np, dev, train["bfloat16"]["img_per_s"], tmp)
         lap("harness")
+        harness_zoo = phase_harness_zoo(torch, tmp)
+        lap("harness_zoo")
+        two_stage = phase_eval_two_stage(torch, np, dev, tmp, sd)
+        lap("eval_two_stage")
         dp = phase_data_parallel(torch, np, dev, batch, tmp)
         lap("data_parallel")
         spatial = phase_spatial(torch, np, dev, batch, tmp)
@@ -3362,6 +3775,11 @@ def main(argv=None) -> int:
              k: r["launches"][KERNELS["B"]]
              for k, r in serve_http["requests"].items()},
          "launches_export_call": export["sorted"]["launches"][KERNELS["B"]],
+         "launches_precision_forward": precision["launches"][KERNELS["B"]],
+         "launches_eval_two_stage_per_batch":
+             two_stage["launches_per_batch"][KERNELS["B"]],
+         "launches_harness_resnet50_multistage_eval_forward":
+             harness_zoo["kernel_B_launches_per_eval_forward"],
          "host_us_per_call": {k: epi_host[f"{k}_us"] for k in (
              "bnr_bare_ctypes_launch", "bnr_rdt_op", "bnr_wrapper",
              "host_fold_then_wrapper", "bare_ctypes_launch", "rdt_op",
@@ -3406,6 +3824,9 @@ def main(argv=None) -> int:
              k: r["launches"][KERNELS["C"]]
              for k, r in serve_http["requests"].items()},
          "launches_export_call": export["sorted"]["launches"][KERNELS["C"]],
+         "launches_precision_forward": precision["launches"][KERNELS["C"]],
+         "launches_eval_two_stage_per_batch":
+             two_stage["launches_per_batch"][KERNELS["C"]],
          "max_abs_err": 0.0,
          "ms": radar["ms"], "ms_cold": radar["ms_cold"],
          "ms_back_to_back": radar["ms_back_to_back"],
@@ -3429,6 +3850,8 @@ def main(argv=None) -> int:
                        "train": train, "eval": ev, "profile": prof,
                        "profile_train": prof_train,
                        "harness": harness, "profile_harness": prof_harness,
+                       "harness_zoo": harness_zoo, "precision": precision,
+                       "eval_two_stage": two_stage,
                        "data_parallel": dp, "spatial": spatial,
                        "serve_http_spatial": serve_spatial,
                        "ops_api": ops_api,

@@ -46,7 +46,10 @@ from radar_depth_tpu_torch.config import (
     serve_config,
 )
 from radar_depth_tpu_torch.data.schema import sample_dtypes, sample_shapes
-from radar_depth_tpu_torch.device import resolve_device
+from radar_depth_tpu_torch.device import (
+    resolve_device,
+    use_deterministic_convs,
+)
 from radar_depth_tpu_torch.metrics import compute_metric_sums, finalize_metrics
 from radar_depth_tpu_torch.models import (
     blend_by_brightness,
@@ -100,6 +103,7 @@ def load_serving(path: str, device: str | torch.device | None = None):
     imports; their CUDA libraries are built at first use, as in eager
     mode."""
     dev = resolve_device(device)
+    use_deterministic_convs(dev)
     meta = _serving_meta(path)
     if meta["device"] != dev.type:
         raise ValueError(
@@ -161,6 +165,7 @@ class Predictor:
         self.mesh = mesh if is_distributed(mesh) else None
         self.device = (self.mesh.device if self.mesh is not None
                        else resolve_device(device))
+        use_deterministic_convs(self.device)
         self._own_mesh = None
         self.plain = plain
         spec = cfg.sample_spec()

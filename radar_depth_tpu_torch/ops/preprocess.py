@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from radar_depth_tpu_torch.data.schema import SampleSpec
-from radar_depth_tpu_torch.device import resolve_device
+from radar_depth_tpu_torch.device import as_device
 from radar_depth_tpu_torch.ops.augment import (
     AugmentConfig,
     apply_affine_uv,
@@ -130,7 +130,7 @@ def prepare_eval_batch(batch: Dict, cfg: PreprocessConfig,
     ``generator``, else from a generator seeded 0 (the same draws for every
     batch, as the JAX package's fixed key).
     """
-    dev = resolve_device(device)
+    dev = as_device(device)
     b = to_device(batch, dev)
     target = b["lidar_depth"][..., None].to(torch.float32)
     if cfg.sparsifier != "none":
@@ -173,7 +173,7 @@ def prepare_train_batch(batch: Dict, cfg: PreprocessConfig,
             raise ValueError("a sparsifier needs sparse_u or a generator")
         return prepare_eval_batch(batch, cfg, device, plain, sparse_u,
                                   generator)
-    dev = resolve_device(device)
+    dev = as_device(device)
     b = to_device(batch, dev)
     rgb = _rgb(b, dev)
     if not cfg.augment.enabled:

@@ -127,7 +127,7 @@ def make_mesh(platform: str = "default", *, backend: Optional[str] = None,
     distributed = dist.is_initialized() or (
         "RANK" in env and "WORLD_SIZE" in env)
     local = int(env.get("LOCAL_RANK", 0))
-    dev = torch.device("cpu") if platform == "cpu" else resolve_device()
+    dev = resolve_device("cpu" if platform == "cpu" else None)
     if not distributed:
         world = int(env.get("WORLD_SIZE", 1))
         if world != 1:

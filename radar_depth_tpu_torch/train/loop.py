@@ -57,6 +57,7 @@ from radar_depth_tpu_torch.config import (
     serve_config,
 )
 from radar_depth_tpu_torch.data.synthetic import SyntheticNuScenes
+from radar_depth_tpu_torch.device import use_deterministic_convs
 from radar_depth_tpu_torch.metrics import AverageMeter, finalize_metrics
 from radar_depth_tpu_torch.models import create_model
 from radar_depth_tpu_torch.models.layers import (
@@ -239,11 +240,10 @@ class Trainer:
         self._main = self.mesh.is_main
         check_batch_sizes(self.mesh, batch_size=cfg.batch_size,
                           eval_batch_size=cfg.eval_batch_size)
-        if self.device.type == "cuda":
-            # deterministic cuDNN convolutions: with the matmul resize
-            # (models/layers.py) a train step on the card gives the same
-            # bits every run, so --resume reproduces the straight run
-            torch.backends.cudnn.deterministic = True
+        # deterministic cuDNN convolutions: with the matmul resize
+        # (models/layers.py) a train step on the card gives the same bits
+        # every run, so --resume reproduces the straight run
+        use_deterministic_convs(self.device)
         if (cfg.metric_avg == "batch"
                 and cfg.eval_batch_size not in (0, cfg.batch_size)):
             self.say("note: --metric-avg batch pools metrics per loop batch "

@@ -18,7 +18,7 @@ from typing import Iterator, Mapping
 
 import torch
 
-from radar_depth_tpu_torch.device import resolve_device
+from radar_depth_tpu_torch.device import as_device
 
 
 @contextlib.contextmanager
@@ -34,7 +34,7 @@ def device_trace(log_dir: str, device: str | torch.device | None = None
     ``device=None`` means the card, and raises without one: the trace holds
     the host's operators and the card's kernels and copies.
     ``device="cpu"`` traces the host only. Yields the profiler."""
-    dev = resolve_device(device)
+    dev = as_device(device)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)

@@ -179,38 +179,73 @@ def test_opcheck_on_card(dtype):
                           (lin_s, z_s, h, w))
 
 
-@pytest.mark.gpu
-def test_export_load_on_card(tmp_path):
-    """A B=2 artifact of the flagship in bfloat16, its serving dtype,
-    exported on the card, loads on the card (device=None), equals
-    Predictor.predict bit for bit, and one call of it launches kernel B at
-    its 84 sites and kernel C once. (In float32 the card's TF32 convolutions
-    differ between the artifact and eager mode by ~1e-5 relative, and eager
-    float32 serving does not repeat bit for bit.)"""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+def _small_flagship(dtype):
+    """A 64x96 flagship Predictor on the card and a B=2 batch."""
     from radar_depth_tpu_torch.config import ServeConfig
     from radar_depth_tpu_torch.data import SampleSpec, SyntheticNuScenes
-    from radar_depth_tpu_torch.inference import Predictor, load_serving
+    from radar_depth_tpu_torch.inference import Predictor
     from radar_depth_tpu_torch.models import create_model, init_random
 
     cfg = ServeConfig(arch="resnet18_multistage", height=64, width=96,
-                      num_sweeps=3, abs_threshold=8.0, dtype="bfloat16")
+                      num_sweeps=3, abs_threshold=8.0, dtype=dtype)
     sd = init_random(create_model(cfg.arch, device="cpu",
                                   output_size=(64, 96))[0], 5).state_dict()
-    pred = Predictor(cfg, sd)
-    path = str(tmp_path / "card.pt2")
-    pred.export_serving(path, 2)
-    serve = load_serving(path)
     batch = SyntheticNuScenes(2, spec=SampleSpec(height=64, width=96,
                                                  num_sweeps=3),
                               seed=3).batch(range(2))
+    return Predictor(cfg, sd), batch
+
+
+def _export_and_call(pred, batch, path):
+    """Export ``pred`` at B=2, load it on the card (device=None) and call
+    it once, counted: kernel B at its 84 sites, kernel C once."""
+    from radar_depth_tpu_torch.inference import load_serving
+
+    pred.export_serving(path, 2)
+    serve = load_serving(path)
     kernels.scale_bias_relu.launches = 0
     kernels.zbuffer_min_depth_sorted.launches = 0
     got = serve(batch)
     assert kernels.scale_bias_relu.launches == 84
     assert kernels.zbuffer_min_depth_sorted.launches == 1
+    return got
+
+
+@pytest.mark.gpu
+def test_export_load_on_card(tmp_path):
+    """A B=2 artifact of the flagship in bfloat16, its serving dtype,
+    exported on the card, loads on the card (device=None), equals
+    Predictor.predict bit for bit, and one call of it launches kernel B at
+    its 84 sites and kernel C once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    pred, batch = _small_flagship("bfloat16")
+    got = _export_and_call(pred, batch, str(tmp_path / "card.pt2"))
     np.testing.assert_array_equal(got, pred.predict(batch))
+
+
+@pytest.mark.gpu
+def test_export_load_float32_on_card(tmp_path):
+    """The same in float32 (IEEE convolutions and cuDNN's deterministic
+    algorithms, the port's setting): the artifact equals Predictor.predict
+    bit for bit, as chip_smoke.py's phase precision measured at 450x800."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    pred, batch = _small_flagship("float32")
+    got = _export_and_call(pred, batch, str(tmp_path / "card32.pt2"))
+    np.testing.assert_array_equal(got, pred.predict(batch))
+
+
+@pytest.mark.gpu
+def test_float32_predict_repeats_on_card():
+    """Two float32 predict calls on the same batch are bit-equal (cuDNN's
+    deterministic algorithms, set by the Predictor)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    pred, batch = _small_flagship("float32")
+    assert torch.backends.cudnn.deterministic
+    assert not torch.backends.cudnn.allow_tf32
+    np.testing.assert_array_equal(pred.predict(batch), pred.predict(batch))
 
 
 @pytest.mark.gpu

@@ -29,7 +29,9 @@ def test_importing_every_module_loads_no_jax():
     assert {"radar_depth_tpu_torch.ops.kernels",
             "radar_depth_tpu_torch.ops.raster",
             "radar_depth_tpu_torch.serve",
-            "radar_depth_tpu_torch.utils.profiling"} <= set(mods)
+            "radar_depth_tpu_torch.utils.profiling",
+            "radar_depth_tpu_torch.eval_two_stage",
+            "radar_depth_tpu_torch.model_summary"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
