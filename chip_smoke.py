@@ -117,7 +117,9 @@ Phases, each printing one JSON line:
   profile_train  the same over one B=8 train step, float32 and bfloat16
   harness        the training harness at full width (flagship, bfloat16,
                  B=8, 450x800) on packed SyntheticNuScenes shards (48 train,
-                 16 val) through the native loader with host augmentation:
+                 16 val; written by python -m
+                 radar_depth_tpu_torch.generate_dataset in a child process)
+                 through the native loader with host augmentation:
                  train.main for 2 epochs (launch counts per train step and
                  per val forward), the run directory's files, --resume to
                  epoch 3 against a straight 3-epoch run, --evaluate against
@@ -128,6 +130,23 @@ Phases, each printing one JSON line:
                  train.main, one bfloat16 epoch of 16 packed samples at B=8
                  and --evaluate of the run: epoch img/s, peak memory,
                  checkpoint bytes, kernel B at 212 launches per eval forward
+  ingest         the day-one chain of radar_depth_tpu_torch/rehearse.py at
+                 full width: 80 reference-format pickles at 900x1600
+                 (rehearse.fabricate, seed 0, 10% map-only radar, 25%
+                 night), imported in a child process (rehearse.run_importer:
+                 450x800, 1 sweep, 70 train / 10 val; peak RSS under 2 GB,
+                 at least 2 train shards, val sidecars with day and night),
+                 one epoch of rehearse.train_argv's run (resnet18_latefusion,
+                 B=32, bfloat16) through train.main and --evaluate
+                 --eval-splits, both counted (kernel C 1 per train step and
+                 per forward, kernel B at every eval BN->ReLU site of the
+                 built model per forward, kernel A 0; --evaluate within
+                 1e-5 of the stored row, test_day.csv and test_night.csv),
+                 python -m radar_depth_tpu_torch.export_oracle in a child
+                 process that sees no card: the export mapped back to the
+                 checkpoint bit for bit, and a float32 Predictor of it
+                 bit-equal to Predictor.from_run at B=8; seconds of each
+                 step, RSS, shards and MB, epoch and --evaluate img/s
   eval_two_stage python -m radar_depth_tpu_torch.eval_two_stage on the card:
                  the float32 flagship of phase serve's weights saved as a
                  port run over the harness's 16 val samples (day/night),
@@ -2349,22 +2368,29 @@ class count_by_phase:
 
 
 def write_harness_data(root):
-    """Packed train/val shards of SyntheticNuScenes at full size, val
-    tagged day/night. Returns seconds and bytes."""
-    from radar_depth_tpu_torch.data import SampleSpec, SyntheticNuScenes
-    from radar_depth_tpu_torch.data.packed import write_shards
-
+    """Packed train/val shards of SyntheticNuScenes at full size (train seed
+    0, val seed 1, 5 sweeps, day/night sidecars), written by ``python -m
+    radar_depth_tpu_torch.generate_dataset`` in a child process. Returns
+    the child's seconds and the shards' bytes."""
     t0 = time.perf_counter()
-    spec = SampleSpec(height=H, width=W, num_sweeps=5)
-    nbytes = 0
-    for split, n, seed in (("train", HARNESS_TRAIN, 0),
-                           ("val", HARNESS_VAL, 1)):
-        ds = SyntheticNuScenes(n, spec=spec, seed=seed)
-        for path in write_shards(os.path.join(root, split),
-                                 (ds[i] for i in range(n)),
-                                 tags=[ds.sample_tag(i) for i in range(n)]):
-            nbytes += os.path.getsize(path)
-    return time.perf_counter() - t0, nbytes
+    [(rc, out, err)] = run_procs(
+        [[sys.executable, "-m", "radar_depth_tpu_torch.generate_dataset",
+          "--out", root, "--num-train", str(HARNESS_TRAIN),
+          "--num-val", str(HARNESS_VAL), "--height", str(H),
+          "--width", str(W), "--sweeps", "5", "--seed", "0"]],
+        lambda i: dict(os.environ), timeout=600)
+    seconds = time.perf_counter() - t0
+    if rc != 0 or not out.startswith(f"train: {HARNESS_TRAIN} samples"):
+        raise RuntimeError(f"generate_dataset exited {rc}: {out[-1000:]}"
+                           f"{err[-2000:]}")
+    return seconds, shard_bytes(root)
+
+
+def shard_bytes(root) -> int:
+    """Bytes of the ``*.rdtp`` shards below ``root`` (sidecars aside)."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files
+               if f.endswith(".rdtp"))
 
 
 def check_run_dir(run_dir, epochs, cfg):
@@ -2563,6 +2589,253 @@ def phase_harness(torch, np, dev, bare_step, tmp):
     emit(out)
     prof = profile_harness(torch, base, os.path.join(tmp, "prof"))
     return out, prof
+
+
+# ---------------------------------------------------------------- ingest
+
+# The day-one chain of radar_depth_tpu_torch/rehearse.py at full width:
+# reference-format pickles at 900x1600 -> import_pickles (child process,
+# 2x down to 450x800, 1 sweep, 1/8 to val) -> one epoch of train_argv's
+# run (resnet18_latefusion, B=32, bf16) -> --evaluate --eval-splits ->
+# export_oracle.
+INGEST_PICKLES = 80  # 70 train, 10 val
+INGEST_SHARD_BYTES = 1 << 27  # ~43 records of 3.05 MB: 2 train shards
+INGEST_RSS_GB = 2.0  # the importer's bounded-memory contract
+INGEST_ARCH, INGEST_BATCH = "resnet18_latefusion", 32  # train_argv's
+
+
+def val_forwards(n, cfg, viz=True):
+    """Forwards of Trainer.validate over ``n`` samples under the run's
+    TrainConfig ``cfg``: one per eval batch, and one per comparison-panel
+    row (the first sample of every ``cfg.val_viz_every``-th batch, at most
+    8) when ``viz``."""
+    batches = math.ceil(n / (cfg.eval_batch_size or cfg.batch_size))
+    return batches + (min(8, math.ceil(batches / cfg.val_viz_every))
+                      if viz else 0)
+
+
+def phase_ingest(torch, np, dev):
+    """rehearse.fabricate -> rehearse.run_importer -> train.main (one
+    epoch, counted, in this process) -> --evaluate --eval-splits (counted)
+    -> python -m radar_depth_tpu_torch.export_oracle (a child process
+    that sees no card) -> the export mapped back bit-equal to the
+    checkpoint, and a float32 Predictor of it bit-equal to from_run's;
+    then kernel C on an imported train batch and the bf16 Predictor of
+    the export (kernels B and C) over the val split and at B=1, each
+    bit-equal to its plain version. Its files live in a temp directory
+    deleted at the end."""
+    import shutil
+    import tempfile
+
+    from radar_depth_tpu_torch import rehearse
+    from radar_depth_tpu_torch.config import load_config, serve_config
+    from radar_depth_tpu_torch.convert import port_state_dict_from_oracle
+    from radar_depth_tpu_torch.data.packed import PackedDataset
+    from radar_depth_tpu_torch.inference import Predictor
+    from radar_depth_tpu_torch.ops import kernels
+    from radar_depth_tpu_torch.ops.preprocess import _radar_uvz, to_device
+    from radar_depth_tpu_torch.ops.raster import sort_points_by_pixel
+    from radar_depth_tpu_torch.train import checkpoint as ckpt_lib
+    from radar_depth_tpu_torch.train.main import run
+
+    root = tempfile.mkdtemp(prefix="rdt-ingest-")
+    try:
+        src, out, run_dir = (os.path.join(root, d)
+                             for d in ("pickles", "packed", "run"))
+        t0 = time.perf_counter()
+        rehearse.fabricate(src, INGEST_PICKLES, seed=0, map_frac=0.1,
+                           night_frac=0.25)
+        fabricate_s = time.perf_counter() - t0
+        src_bytes = sum(os.path.getsize(os.path.join(src, f))
+                        for f in os.listdir(src))
+
+        t0 = time.perf_counter()
+        rss_gb = rehearse.run_importer(src, out, INGEST_SHARD_BYTES)
+        import_s = time.perf_counter() - t0
+        shutil.rmtree(src)
+        shards = {split: sorted(f for f in os.listdir(os.path.join(out, split))
+                                if f.endswith(".rdtp"))
+                  for split in ("train", "val")}
+        train_ds = PackedDataset(os.path.join(out, "train"))
+        n_train = len(train_ds)
+        train_batch = train_ds.batch(range(INGEST_BATCH))
+        train_ds.close()
+        val_ds = PackedDataset(os.path.join(out, "val"))
+        n_val, tags = len(val_ds), list(val_ds.tags)
+        b8 = val_ds.batch(range(B_SERVE))
+        val_all = val_ds.batch(range(n_val))
+        val_ds.close()
+        if (rss_gb >= INGEST_RSS_GB or len(shards["train"]) < 2
+                or set(tags) != {"day", "night"} or (n_train, n_val) != (
+                    INGEST_PICKLES - INGEST_PICKLES // 8, INGEST_PICKLES // 8)):
+            raise AssertionError(
+                f"import: peak RSS {rss_gb:.3f} GB, shards {shards}, "
+                f"{n_train} + {n_val} samples, val tags {tags}")
+
+        # the main path, counted: one epoch through train.main
+        argv = rehearse.train_argv(out, run_dir, 1)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with count_by_phase() as phases:
+            r = run(argv)
+        train_s = time.perf_counter() - t0
+        train_launches = read_launches()
+        h = r["history"][0]
+        best, _ = check_run_dir(run_dir, 1, r["cfg"])
+
+        # --evaluate --eval-splits, counted
+        reset_launches()
+        t0 = time.perf_counter()
+        ev = run(argv + ["--evaluate", run_dir, "--eval-splits"])
+        eval_s = time.perf_counter() - t0
+        eval_launches = read_launches()
+        val = ev["validation"]
+        eval_err = max((abs(val[k] - float(best[k])) - 5e-7)
+                       / max(abs(float(best[k])), 1e-12)
+                       for k in CSV_METRICS)
+        split_rows = {t: csv_rows(os.path.join(run_dir, f"test_{t}.csv"))
+                      for t in ("day", "night")}
+        if (eval_err > EVAL_RTOL or set(ev["splits"]) != {"day", "night"}
+                or any(len(rows) != 1 for rows in split_rows.values())):
+            raise AssertionError(f"--evaluate {val} vs best row {best} "
+                                 f"({eval_err:.2e}), splits "
+                                 f"{sorted(ev['splits'])}, {split_rows}")
+
+        # export_oracle, a file conversion on the CPU: no card visible
+        pth = os.path.join(root, "oracle.pth")
+        t0 = time.perf_counter()
+        [(rc, stdout, err)] = run_procs(
+            [[sys.executable, "-m", "radar_depth_tpu_torch.export_oracle",
+              "--run", run_dir, "--out", pth, "--arch", INGEST_ARCH,
+              "--height", str(H), "--width", str(W)]],
+            lambda i: dict(os.environ, CUDA_VISIBLE_DEVICES=""), timeout=600)
+        export_s = time.perf_counter() - t0
+        exported = torch.load(pth, weights_only=True)
+        if rc != 0 or stdout != f"exported {len(exported)} tensors → {pth}\n":
+            raise AssertionError(f"export_oracle exited {rc}: {stdout}"
+                                 f"{err[-2000:]}")
+        ckpt = ckpt_lib.load_payload(ckpt_lib.resolve_checkpoint(run_dir))
+        back = port_state_dict_from_oracle(exported, like=ckpt["model"])
+        if not all(torch.equal(back[k], v) for k, v in ckpt["model"].items()):
+            raise AssertionError("export -> port differs from the checkpoint")
+
+        # a Predictor of the exported weights against from_run, float32
+        cfg = load_config(os.path.join(run_dir, "config.json"))
+        cfg32 = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, dtype="float32"))
+        from_run = Predictor.from_run(run_dir, cfg=cfg32)
+        sites = len(record_epilogue_sites(torch, from_run, b8))
+        want = from_run.predict(b8)
+        got = Predictor(serve_config(cfg32), back).predict(b8)
+        if (got.shape != (B_SERVE, H, W) or not np.isfinite(got).all()
+                or not np.array_equal(got, want)):
+            raise AssertionError("Predictor of the export differs from "
+                                 "from_run's (float32, B=8)")
+        del from_run
+
+        # the kernels against their plain versions at this path's shapes:
+        # kernel C on a train batch's sorted radar points, as each train
+        # step rasterizes them, and kernels B and C in the bf16 Predictor
+        # of the export over the val batch and at B=1 (a panel forward)
+        lin, zs = sort_points_by_pixel(
+            *_radar_uvz(to_device(train_batch, dev)), H, W, 0.0, 80.0)
+        got_c = kernels.zbuffer_min_depth_sorted(lin, zs, H, W)
+        want_c = kernels.zbuffer_min_depth_sorted_reference(lin, zs, H, W)
+        if not torch.equal(got_c.view(torch.int32), want_c.view(torch.int32)):
+            raise AssertionError(
+                f"kernel C on the train batch {tuple(lin.shape)} differs "
+                f"from its plain version by "
+                f"{float((got_c - want_c).abs().max())}")
+        kernel_c = {"B": lin.shape[0], "P": lin.shape[1],
+                    "kept": int((lin < H * W).sum()), "bit_equal": True}
+        serve16 = serve_config(cfg)
+        kern16 = Predictor(serve16, back, device=dev)
+        plain16 = Predictor(serve16, back, device=dev, plain=True)
+        take = lambda n: {k: v[:n] for k, v in val_all.items()}
+        reset_launches()
+        got16 = {n: kern16.predict(take(n)) for n in (n_val, 1)}
+        kern16_launches = read_launches()
+        want16 = {n: plain16.predict(take(n)) for n in (n_val, 1)}
+        if (read_launches() != kern16_launches
+                or kern16_launches[KERNELS["A"]] != 0
+                or kern16_launches[KERNELS["C"]] < 2
+                or kern16_launches[KERNELS["B"]]
+                != sites * kern16_launches[KERNELS["C"]]):
+            raise AssertionError(f"bf16 Predictor launches {kern16_launches}"
+                                 f", then {read_launches()} with the plain "
+                                 f"one; {sites} kernel B sites per forward")
+        bf16_err = {n: float(np.abs(got16[n] - want16[n]).max())
+                    for n in got16}
+        for n, out16 in got16.items():
+            if (out16.shape != (n, H, W) or not np.isfinite(out16).all()
+                    or not np.array_equal(out16, want16[n])):
+                raise AssertionError(f"bf16 Predictor B={n}: kernels vs "
+                                     f"plain max abs {bf16_err[n]}")
+        del kern16, plain16
+
+        # kernel C once per train step and per forward, kernel B at every
+        # eval BN->ReLU site of the built model, kernel A never
+        steps = h["train"]["steps"]
+        val_fw = val_forwards(n_val, r["cfg"])
+        eval_fw = val_fw + sum(val_forwards(tags.count(t), r["cfg"],
+                                            viz=False)
+                               for t in ("day", "night"))
+        want_launches = {
+            "train_epoch": {KERNELS["A"]: 0, KERNELS["B"]: 0,
+                            KERNELS["C"]: steps},
+            "validate": {KERNELS["A"]: 0, KERNELS["B"]: sites * val_fw,
+                         KERNELS["C"]: val_fw},
+            "evaluate": {KERNELS["A"]: 0, KERNELS["B"]: sites * eval_fw,
+                         KERNELS["C"]: eval_fw}}
+        got_launches = dict(phases.counts, evaluate=eval_launches)
+        if (got_launches != want_launches
+                or steps != n_train // INGEST_BATCH
+                or train_launches != {
+                    k: want_launches["train_epoch"][k]
+                    + want_launches["validate"][k] for k in train_launches}):
+            raise AssertionError(f"ingest launches {got_launches} (train "
+                                 f"{train_launches}), expected "
+                                 f"{want_launches}")
+
+        smi = nvidia_smi().split(", ")
+        result = {
+            "phase": "ingest", "arch": INGEST_ARCH, "dtype": "bfloat16",
+            "batch": INGEST_BATCH, "hw": [H, W], "source_hw": [
+                rehearse.FULL_H, rehearse.FULL_W], "sweeps": 1,
+            "pickles": INGEST_PICKLES, "samples": [n_train, n_val],
+            "val_tags": {t: tags.count(t) for t in ("day", "night")},
+            "fabricate_s": fabricate_s, "pickle_mb": src_bytes / 1e6,
+            "import_s": import_s, "importer_peak_rss_gb": rss_gb,
+            "shards": {k: len(v) for k, v in shards.items()},
+            "shard_mb": shard_bytes(out) / 1e6,
+            "train_epoch_s": train_s, "walls_s": h["walls"],
+            # two windows too short for a rate: they read start-up
+            "epoch_img_per_s": steps * INGEST_BATCH / h["walls"]["train"],
+            "epoch_window_images": steps * INGEST_BATCH,
+            "train_steps": steps, "loss": h["train"]["loss"],
+            "val_rmse": h["val"]["rmse"],
+            "evaluate_s": eval_s,
+            "evaluate_img_per_s": n_val / (
+                math.ceil(n_val / INGEST_BATCH)
+                * (val["data_time"] + val["gpu_time"])),
+            "evaluate_window_images": n_val,
+            "evaluate_rel_err_vs_best_row": eval_err,
+            "splits": {t: m["count"] for t, m in ev["splits"].items()},
+            "kernel_B_sites_per_forward": sites,
+            "launches": got_launches,
+            "export_s": export_s, "exported_tensors": len(exported),
+            "export_round_trip_bit_equal": True,
+            "predictor_from_export_bit_equal": True,
+            "kernel_C_train_batch_vs_plain": kernel_c,
+            "predictor_bf16_vs_plain": {
+                "batches": list(got16), "launches": kern16_launches,
+                "max_abs_err": max(bf16_err.values()), "bit_equal": True},
+            "device": {"name": smi[0], "power.limit": smi[-1]}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(result)
+    return result
 
 
 # The zoo through the Trainer: resnet50_multistage, one bf16 epoch of
@@ -3716,6 +3989,8 @@ def main(argv=None) -> int:
         harness, prof_harness = phase_harness(
             torch, np, dev, train["bfloat16"]["img_per_s"], tmp)
         lap("harness")
+        ingest = phase_ingest(torch, np, dev)
+        lap("ingest")
         harness_zoo = phase_harness_zoo(torch, tmp)
         lap("harness_zoo")
         two_stage = phase_eval_two_stage(torch, np, dev, tmp, sd)
@@ -3744,6 +4019,8 @@ def main(argv=None) -> int:
          "replaces": "radar_depth_tpu/ops/pallas_kernels.py:71",
          "launches": launches_sc[KERNELS["A"]],
          "launches_harness": harness["launches"][KERNELS["A"]],
+         "launches_ingest": {k: n[KERNELS["A"]]
+                             for k, n in ingest["launches"].items()},
          "launches_data_parallel": dp["launches"][KERNELS["A"]],
          "launches_export_call": export["scatter"]["launches"][KERNELS["A"]],
          "launches_ops_api": ops_api["scatter"]["launches"][KERNELS["A"]],
@@ -3761,6 +4038,8 @@ def main(argv=None) -> int:
          "replaces": "radar_depth_tpu/ops/pallas_kernels.py:251",
          "launches": launches[KERNELS["B"]],
          "launches_harness": harness["launches"][KERNELS["B"]],
+         "launches_ingest": {k: n[KERNELS["B"]]
+                             for k, n in ingest["launches"].items()},
          "launches_data_parallel": dp["launches"][KERNELS["B"]],
          "launches_data_parallel_rank_eval_step": [
              r[KERNELS["B"]] for r in dp["gloo_two_ranks"][
@@ -3809,6 +4088,8 @@ def main(argv=None) -> int:
          "replaces": "radar_depth_tpu/ops/pallas_kernels.py:176",
          "launches": train_launches["float32"][KERNELS["C"]],
          "launches_harness": harness["launches"][KERNELS["C"]],
+         "launches_ingest": {k: n[KERNELS["C"]]
+                             for k, n in ingest["launches"].items()},
          "launches_data_parallel": dp["launches"][KERNELS["C"]],
          "launches_data_parallel_rank_train_step": [
              r[KERNELS["C"]] for r in dp["gloo_two_ranks"][
@@ -3851,6 +4132,7 @@ def main(argv=None) -> int:
                        "profile_train": prof_train,
                        "harness": harness, "profile_harness": prof_harness,
                        "harness_zoo": harness_zoo, "precision": precision,
+                       "ingest": ingest,
                        "eval_two_stage": two_stage,
                        "data_parallel": dp, "spatial": spatial,
                        "serve_http_spatial": serve_spatial,

@@ -1,4 +1,5 @@
-"""JAX variables -> the port's state_dict.
+"""JAX variables -> the port's state_dict, and the port's state_dict to and
+from the oracle's.
 
 The port's module names mirror the flax tree, so conversion is mechanics:
   params    a/b/kernel (kh,kw,I,O)  -> "a.b.weight" (O,I,kh,kw)
@@ -15,6 +16,15 @@ params-shaped) across the same way, into ``torch.optim.SGD``'s
 utils/torch_convert.py::graft_pretrained_encoders`` (``--pretrained``): a
 torchvision ResNet state_dict into every encoder of a model, on torch
 state_dicts.
+
+``oracle_state_dict_from_port`` / ``port_state_dict_from_oracle`` map the
+port's state_dict to and from the names and layouts of the reference's
+torch modules (``radar_depth_tpu/oracle/torch_model.py``; the JAX package's
+``variables_to_torch_state_dict`` / ``torch_state_dict_to_variables``).
+The names are the same; only a transposed conv (module ``convt``,
+``nn.ConvTranspose2d``) differs, (I,O,k,k) there against the port's
+(O,I,k,k). An ``UnpoolConv`` holds the oracle's ``nn.Conv2d`` layout
+already.
 """
 
 from __future__ import annotations
@@ -62,17 +72,24 @@ def state_dict_from_jax_variables(
                 raise KeyError(f"unknown {col} leaf {'/'.join(path)}")
             sd[".".join([*mods, leaf])] = torch.tensor(w)
     if like is not None:
-        missing = sorted(set(like) - set(sd))
-        extra = sorted(set(sd) - set(like))
-        if missing or extra:
-            raise KeyError(f"state_dict keys differ: missing {missing[:5]}"
-                           f"{'...' if len(missing) > 5 else ''}, extra "
-                           f"{extra[:5]}{'...' if len(extra) > 5 else ''}")
-        for k, t in like.items():
-            if tuple(t.shape) != tuple(sd[k].shape):
-                raise ValueError(f"{k}: shape {tuple(sd[k].shape)} != "
-                                 f"{tuple(t.shape)}")
+        _check_like(sd, like)
     return sd
+
+
+def _check_like(sd: Mapping[str, torch.Tensor],
+                like: Mapping[str, torch.Tensor]) -> None:
+    """Raise on a key of ``sd`` missing from or extra to ``like``, or a
+    shape that differs."""
+    missing = sorted(set(like) - set(sd))
+    extra = sorted(set(sd) - set(like))
+    if missing or extra:
+        raise KeyError(f"state_dict keys differ: missing {missing[:5]}"
+                       f"{'...' if len(missing) > 5 else ''}, extra "
+                       f"{extra[:5]}{'...' if len(extra) > 5 else ''}")
+    for k, t in like.items():
+        if tuple(t.shape) != tuple(sd[k].shape):
+            raise ValueError(f"{k}: shape {tuple(sd[k].shape)} != "
+                             f"{tuple(t.shape)}")
 
 
 def optimizer_state_from_jax(opt_state_trace: Mapping, like) -> Dict[str, Any]:
@@ -142,3 +159,49 @@ def graft_pretrained_encoders(model_state: Mapping[str, torch.Tensor],
                 loaded += 1
         report.append((prefix.replace(".", "/"), loaded, skipped))
     return out, report
+
+
+_ORACLE_LEAVES = ("weight", "bias", "running_mean", "running_var")
+
+
+def _swap_convt(state_dict: Mapping[str, Any], to: str
+                ) -> Dict[str, torch.Tensor]:
+    """float32 contiguous CPU tensors under the same names, each ``convt``
+    weight's first two axes swapped ((O,I,k,k) in the port, (I,O,k,k) in
+    the oracle's ``nn.ConvTranspose2d``). Raises KeyError on a leaf that
+    ``to`` has no counterpart for."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, t in state_dict.items():
+        if "." not in key or key.rsplit(".", 1)[1] not in _ORACLE_LEAVES:
+            raise KeyError(f"{key}: no counterpart in the {to}'s modules")
+        t = torch.as_tensor(t).detach().to("cpu", torch.float32)
+        if key.endswith(".convt.weight"):
+            t = t.transpose(0, 1)
+        sd[key] = t.contiguous()
+    return sd
+
+
+def oracle_state_dict_from_port(state_dict: Mapping[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """The port's state_dict -> the oracle's (the JAX package's
+    ``variables_to_torch_state_dict``). Raises KeyError on the
+    ``_uncertainty`` archs' top-level ``stage_log_var``, which the oracle
+    lacks."""
+    return _swap_convt(state_dict, "oracle")
+
+
+def port_state_dict_from_oracle(
+        state_dict: Mapping[str, Any],
+        like: Mapping[str, torch.Tensor] | None = None) -> Dict[str, torch.Tensor]:
+    """The oracle's state_dict -> the port's (the JAX package's
+    ``torch_state_dict_to_variables``), without ``nn.BatchNorm2d``'s
+    ``num_batches_tracked`` counters, which no module of the port (nor of
+    the JAX package) holds. Raises KeyError on any other leaf the port
+    lacks and, when ``like`` (the target model's ``state_dict()``) is
+    given, on any missing or extra key, and ValueError on any shape
+    mismatch."""
+    sd = _swap_convt({k: v for k, v in state_dict.items()
+                      if not k.endswith(".num_batches_tracked")}, "port")
+    if like is not None:
+        _check_like(sd, like)
+    return sd

@@ -1,5 +1,6 @@
 """radar_depth_tpu_torch and chip_smoke.py import neither JAX nor anything of
-the JAX package radar_depth_tpu, at import time or in their sources."""
+the JAX package radar_depth_tpu, nor a file of the repo's scripts/, at
+import time or in their sources."""
 
 import pkgutil
 import re
@@ -12,11 +13,17 @@ import radar_depth_tpu_torch
 PKG_DIR = Path(radar_depth_tpu_torch.__file__).parent
 CHIP_SMOKE = PKG_DIR.parent / "chip_smoke.py"
 PATTERN = re.compile(
-    r"^\s*(import\s+(jax|flax)\b|from\s+(jax|flax)\b"
-    r"|.*\bradar_depth_tpu\.(?!_torch)|.*\bradar_depth_tpu\s+import\b)")
+    r"^\s*(import\s+(jax|flax|scripts)\b|from\s+(jax|flax|scripts)\b"
+    r"|.*\bradar_depth_tpu\.(?!_torch)|.*\bradar_depth_tpu\s+import\b"
+    r"|.*\bsys\.path\b.*\bscripts\b)")
+SCRIPTS_DIR = str(PKG_DIR.parent / "scripts")
 JAX_MODULES = ("bad = sorted(m for m in sys.modules if m == 'jax' or "
                "m.startswith(('jax.', 'jaxlib', 'flax')) or "
-               "m == 'radar_depth_tpu' or m.startswith('radar_depth_tpu.'))\n")
+               "m == 'radar_depth_tpu' or m.startswith('radar_depth_tpu.'))\n"
+               "import os\n"
+               "bad += sorted(m for m, mod in list(sys.modules.items()) if "
+               "os.path.abspath(getattr(mod, '__file__', None) or '')"
+               f".startswith({SCRIPTS_DIR + '/'!r}))\n")
 
 
 def _modules():
@@ -31,7 +38,11 @@ def test_importing_every_module_loads_no_jax():
             "radar_depth_tpu_torch.serve",
             "radar_depth_tpu_torch.utils.profiling",
             "radar_depth_tpu_torch.eval_two_stage",
-            "radar_depth_tpu_torch.model_summary"} <= set(mods)
+            "radar_depth_tpu_torch.model_summary",
+            "radar_depth_tpu_torch.generate_dataset",
+            "radar_depth_tpu_torch.import_pickles",
+            "radar_depth_tpu_torch.rehearse",
+            "radar_depth_tpu_torch.export_oracle"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
