@@ -59,6 +59,33 @@ Phases, each printing one JSON line:
                  host time kept); 8 clients sending 64 one-sample requests
                  single-flight (window 0) and coalesced (window 5 ms):
                  requests/s, p50/p99 ms, device dispatches
+  bench          the port's benchmark entry points, each through its main()
+                 in this process, at 450x800 and 5 sweeps (flagship, seeded
+                 random weights), each JSON line printed with its launches
+                 (asserted per forward or step), host seconds and peak
+                 memory: python -m radar_depth_tpu_torch.bench in mode infer
+                 (bfloat16 at B=128 and float32 at B=8, --iters 10 --repeat
+                 3: img/s median, min, max, mean, and mfu against the card's
+                 dense peak), stream (bfloat16, B=128, --stream-iters 8),
+                 train (bfloat16, B=32, and B=16 with --grad-accum 2, --iters
+                 5, native loader); .bench_latency (--batches 1,8,32
+                 --requests 30: device and end-to-end ms p50/p90/p99/mean);
+                 .bench_serve_concurrency at its defaults (96x160, 3
+                 sweeps, 64 requests: a smoke size) and at 450x800, 5
+                 sweeps, 512 requests (req/s, p50/p99 ms, dispatches,
+                 single-flight and coalesced); kernel B 84 and kernel C 1
+                 per served forward (42 and 1 per resnet18_latefusion
+                 daemon forward), kernel C 1 and kernel B 0 per train
+                 micro-batch, the launches per call as read; then, at the
+                 phase's shapes, each kernel path bit-equal to its plain
+                 version: one iteration of the bench's infer function
+                 against Predictor.infer and its plain=True twin (bfloat16
+                 B=128, float32 B=8), the latency tool's Predictor at
+                 B=1, 8, 32 and the daemon's at tiles 1, 2, 4, 8 (both
+                 sizes) against their plain twins, kernel C on the B=32
+                 native-loader train batch against the plain z-buffer;
+                 host seconds of 8 synthetic samples in the bench's
+                 thread pool and one by one, at 64x96 and 450x800
   export         the flagship at B=8 (bfloat16) exported with both
                  raster_backend values (Predictor.export_serving): bytes,
                  export and load seconds, the rdt.* nodes of each graph; one
@@ -1394,6 +1421,287 @@ def phase_serve_http(torch, np, pred, batch):
     out["closed"] = True
     emit(out)
     return out
+
+
+# ------------------------------------------------------------- bench
+
+BENCH_SIZE = ["--height", str(H), "--width", str(W), "--sweeps", "5"]
+BENCH_TIMED = ["--iters", "10", "--repeat", "3"]  # after --warmup's 5
+BENCH_WARMUP = 5  # the entry points' default --warmup
+BENCH_FORWARDS = BENCH_WARMUP + 10 * 3  # of one infer run
+LATENCY_BATCHES, LATENCY_REQUESTS, LATENCY_WARMUP = (1, 8, 32), 30, 3
+LATEFUSION_SITES = 42  # kernel B per resnet18_latefusion forward
+DAEMON_TILES = (1, 2, 4, 8)  # the daemon's tile ladder at max_tile 8
+LADDER_TILES = len(DAEMON_TILES)  # forwards of the daemon's warmup
+DAEMON_FULL_REQUESTS = 512  # per mode at 450x800: a p99 of 512 latencies
+
+
+def run_entry(main, argv):
+    """``main(argv)`` of an entry point in this process, as its command
+    line runs it -> (the JSON lines it printed, host seconds)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{argv}: exit code {rc}")
+    return [json.loads(x) for x in out.getvalue().splitlines()], seconds
+
+
+def bench_run(torch, dev, name, main, argv, calls, per_call):
+    """One counted run of an entry point: every kernel's launches over the
+    run, which makes ``calls`` forwards or steps (a number, or a function
+    of the printed lines), must be ``per_call`` (A, B, C) times as many.
+    Prints and returns its lines, seconds, launches and peak memory."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    lines, seconds = run_entry(main, argv)
+    launches = read_launches()
+    n = calls(lines) if callable(calls) else calls
+    want = {KERNELS[k]: per * n for k, per in per_call.items()}
+    if launches != want:
+        raise AssertionError(f"{name} {argv}: launches {launches} over {n} "
+                             f"calls, expected {want}")
+    out = {"phase": "bench", "run": name, "argv": argv, "lines": lines,
+           "seconds": seconds, "calls": n, "launches": launches,
+           "launches_per_call": {KERNELS[k]: launches[KERNELS[k]] / n
+                                 for k in per_call},
+           "mem_before_gib": base / 2**30,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    emit(out)
+    return out
+
+
+def held_to_plain(torch, got, want, what):
+    """A kernel path's output against its plain version's: finite and
+    bit-equal, or raise. -> its record."""
+    err = float((got.float() - want.float()).abs().max())
+    out = {"shape": list(got.shape), "max_abs_err": err,
+           "bit_equal": bool(torch.equal(got, want)),
+           "finite": bool(torch.isfinite(got).all())}
+    if not (out["bit_equal"] and out["finite"]):
+        raise AssertionError(f"{what}: {out}")
+    return out
+
+
+def bench_bit_equal(torch, dev, dtype, n):
+    """One iteration of the bench's infer function against
+    ``Predictor(cfg, sd).infer`` and against its ``plain=True`` twin (the
+    kernels' plain versions) on the same batch and weights."""
+    from radar_depth_tpu_torch import bench
+    from radar_depth_tpu_torch.config import ServeConfig
+    from radar_depth_tpu_torch.inference import Predictor
+    from radar_depth_tpu_torch.ops.preprocess import PreprocessConfig
+
+    args = bench.build_parser().parse_args(
+        BENCH_SIZE + ["--batch", str(n), "--dtype", dtype])
+    spec = bench.sample_spec(args)
+    model, arch_spec = bench.build_model(args, dev)
+    batch = bench.resident(bench.synthetic_batch(spec, n), dev)
+    got = bench.make_infer_fn(model, arch_spec, PreprocessConfig(spec=spec),
+                              dev)(batch)
+    if got.shape != (n, H, W):
+        raise AssertionError(f"bench infer: shape {tuple(got.shape)}")
+    cfg = ServeConfig(arch=args.arch, dtype=dtype, height=H, width=W,
+                      num_sweeps=5)
+    sd = model.state_dict()
+    del model
+    out = {"dtype": dtype, "batch": n}
+    for name, plain in (("predictor_infer", False), ("plain", True)):
+        want = Predictor(cfg, sd, device=dev, plain=plain).infer(batch)
+        out[name] = held_to_plain(torch, got, want,
+                                  f"bench infer vs {name}, {dtype} B={n}")
+        del want
+    return out
+
+
+def seeded_vs_plain(torch, dev, cfg, tiles, seed=0):
+    """The seeded Predictor of ``cfg`` that a tool serves against its
+    ``plain=True`` twin, ``Predictor.infer`` at each tile size."""
+    from radar_depth_tpu_torch import bench
+
+    kern = bench.seeded_predictor(cfg, dev)
+    plain = bench.seeded_predictor(cfg, dev, plain=True)
+    host = bench.synthetic_batch(cfg.sample_spec(), max(tiles), seed)
+    out = {"arch": cfg.arch, "dtype": cfg.dtype,
+           "hw": [cfg.height, cfg.width], "sweeps": cfg.num_sweeps}
+    for n in tiles:
+        batch = bench.resident({k: v[:n] for k, v in host.items()}, dev)
+        out[f"B{n}"] = held_to_plain(
+            torch, kern.infer(batch), plain.infer(batch),
+            f"{cfg.arch} {cfg.dtype} {cfg.height}x{cfg.width} B={n}")
+    kern.close()
+    plain.close()
+    return out
+
+
+def train_batch_vs_plain(torch, dev, n):
+    """Kernel C against the plain z-buffer on the bench's train batch
+    (native loader, worker-augmented, B=``n``), through the step's own
+    preprocessing (``prepare_eval_batch`` of a host-augmented batch)."""
+    from radar_depth_tpu_torch import bench
+    from radar_depth_tpu_torch.data.packed import native_available
+    from radar_depth_tpu_torch.ops.preprocess import prepare_eval_batch
+    from radar_depth_tpu_torch.train.step import make_preprocess_config
+
+    if not native_available():
+        raise AssertionError("the native loader is not built")
+    args = bench.build_parser().parse_args(
+        BENCH_SIZE + ["--mode", "train", "--batch", str(n)])
+    cfg = bench.train_config(args)
+    host = bench.train_batch(args, cfg, True)[0]
+    batch = bench.resident(host, dev)
+    pre = make_preprocess_config(cfg)
+    got, want = (prepare_eval_batch(batch, pre, dev, plain=p)["radar"]
+                 for p in (False, True))
+    out = held_to_plain(torch, got.view(torch.int32), want.view(torch.int32),
+                        f"kernel C on the train batch B={n}")
+    out["max_abs_err"] = float((got - want).abs().max())
+    out["points"] = list(host["radar_points"].shape)
+    return out
+
+
+def sample_seconds(np, n=8):
+    """Host seconds to make ``n`` synthetic samples in the bench's thread
+    pool (``bench.synthetic_samples``) and one after another, at the
+    tests' size and at full size."""
+    from radar_depth_tpu_torch import bench
+    from radar_depth_tpu_torch.data.schema import SampleSpec
+    from radar_depth_tpu_torch.data.synthetic import SyntheticNuScenes
+
+    out = {}
+    for h, w, sweeps in ((64, 96, 2), (H, W, 5)):
+        spec = SampleSpec(height=h, width=w, num_sweeps=sweeps,
+                          max_depth=80.0)
+        t0 = time.perf_counter()
+        pooled = bench.synthetic_samples(spec, n)
+        t1 = time.perf_counter()
+        ds = SyntheticNuScenes(n, spec=spec, seed=0)
+        serial = [ds[i] for i in range(n)]
+        t2 = time.perf_counter()
+        if not all(np.array_equal(a[k], b[k]) for a, b in zip(pooled, serial)
+                   for k in b):
+            raise AssertionError(f"pooled samples differ at {h}x{w}")
+        out[f"{h}x{w}"] = {"n": n, "pool_s": t1 - t0, "serial_s": t2 - t1}
+    return out
+
+
+def launches_bench(bench_out, kernel):
+    """A kernel's launches per forward or step (per micro-batch) in each
+    run of phase bench."""
+    return {name: r["launches_per_call"][KERNELS[kernel]]
+            for name, r in bench_out["runs"].items()}
+
+
+def phase_bench(torch, np, dev, smi):
+    """The port's benchmark entry points (python -m radar_depth_tpu_torch.
+    bench, .bench_latency, .bench_serve_concurrency) run in this process
+    through their main(), each counted, then the bench's infer iteration
+    against Predictor.infer in both dtypes."""
+    from radar_depth_tpu_torch import (bench, bench_latency,
+                                       bench_serve_concurrency)
+
+    serve = {"A": 0, "B": EPILOGUE_SITES_PER_FORWARD, "C": 1}
+    step = {"A": 0, "B": 0, "C": 1}  # per micro-batch
+    daemon = {"A": 0, "B": LATEFUSION_SITES, "C": 1}
+    daemon_forwards = lambda lines: sum(LADDER_TILES + x["device_dispatches"]
+                                        for x in lines)
+    infer = BENCH_SIZE + BENCH_TIMED
+    train = BENCH_SIZE + ["--mode", "train", "--iters", "5"]
+    runs = {}
+    for name, main, argv, calls, per_call in [
+        ("infer_bf16_b128", bench.main, infer + ["--batch", "128"],
+         BENCH_FORWARDS, serve),
+        ("infer_float32_b8", bench.main,
+         infer + ["--batch", "8", "--dtype", "float32"], BENCH_FORWARDS,
+         serve),
+        # the resident loops, one warm step, then the streamed steps
+        ("stream_bf16_b128", bench.main,
+         infer + ["--batch", "128", "--mode", "stream", "--stream-iters",
+                  "8"], BENCH_FORWARDS + 1 + 8, serve),
+        ("train_bf16_b32", bench.main, train + ["--batch", "32"],
+         BENCH_WARMUP + 5, step),
+        ("train_bf16_b16_accum2", bench.main,
+         train + ["--batch", "16", "--grad-accum", "2"],
+         2 * (BENCH_WARMUP + 5), step),
+        # per batch size: the resident path's warmup and requests, then
+        # predict's (one tile each)
+        ("bench_latency", bench_latency.main,
+         ["--batches", ",".join(map(str, LATENCY_BATCHES)), "--requests",
+          str(LATENCY_REQUESTS)],
+         len(LATENCY_BATCHES) * 2 * (LATENCY_WARMUP + LATENCY_REQUESTS),
+         serve),
+        # per mode: the warmup's tile ladder, then one forward per
+        # dispatch; at the tool's defaults (96x160, 3 sweeps: a smoke
+        # size), then at full size with requests enough for a p99
+        ("bench_serve_concurrency", bench_serve_concurrency.main, [],
+         daemon_forwards, daemon),
+        ("bench_serve_concurrency_full", bench_serve_concurrency.main,
+         BENCH_SIZE + ["--requests", str(DAEMON_FULL_REQUESTS)],
+         daemon_forwards, daemon),
+    ]:
+        runs[name] = bench_run(torch, dev, name, main, argv, calls, per_call)
+
+    kind = torch.cuda.get_device_name(dev)
+    for name, r in runs.items():
+        if name.startswith(("infer", "stream", "train")):
+            line, = r["lines"]
+            if not line["value"] > 0:
+                raise AssertionError(f"{name}: {line}")
+            if name.startswith("infer") and (
+                    line.get("device") != kind or "mfu" not in line):
+                raise AssertionError(f"{name}: no card keys in {line}")
+    lat = runs["bench_latency"]["lines"]
+    if [x["batch"] for x in lat] != list(LATENCY_BATCHES):
+        raise AssertionError(f"bench_latency: {lat}")
+    for name, requests in (("bench_serve_concurrency", HTTP_REQUESTS),
+                           ("bench_serve_concurrency_full",
+                            DAEMON_FULL_REQUESTS)):
+        single, coalesced = runs[name]["lines"]
+        if ([single["mode"], coalesced["mode"]]
+                != ["single-flight", "coalesced"]
+                or {single["requests"], coalesced["requests"]} != {requests}
+                or coalesced["device_dispatches"]
+                > single["device_dispatches"]):
+            raise AssertionError(f"{name}: {single} {coalesced}")
+
+    # the kernels against their plain versions at this phase's shapes
+    from radar_depth_tpu_torch.config import ServeConfig
+
+    latency = ServeConfig(arch="resnet18_multistage", dtype="bfloat16",
+                          height=H, width=W, num_sweeps=5)
+    daemon_cfg = lambda h, w, sweeps: ServeConfig(
+        arch="resnet18_latefusion", dtype="float32", height=h, width=w,
+        num_sweeps=sweeps)
+    t0 = time.perf_counter()
+    plain = {
+        "bench_infer": [bench_bit_equal(torch, dev, "bfloat16", 128),
+                        bench_bit_equal(torch, dev, "float32", 8)],
+        "bench_latency": seeded_vs_plain(torch, dev, latency,
+                                         LATENCY_BATCHES),
+        "daemon": seeded_vs_plain(torch, dev, daemon_cfg(96, 160, 3),
+                                  DAEMON_TILES, seed=3),
+        "daemon_full": seeded_vs_plain(torch, dev, daemon_cfg(H, W, 5),
+                                       DAEMON_TILES, seed=3),
+        "train_kernel_c": train_batch_vs_plain(torch, dev, 32)}
+    plain_s = time.perf_counter() - t0
+    out = {"phase": "bench", "device": kind, "nvidia_smi": smi,
+           "mfu": {k: r["lines"][0]["mfu"] for k, r in runs.items()
+                   if k.startswith("infer")},
+           "peak_mem_gib": {k: r["peak_mem_gib"] for k, r in runs.items()},
+           "launches_per_call": {k: r["launches_per_call"]
+                                 for k, r in runs.items()},
+           "held_to_plain": plain, "held_to_plain_s": plain_s,
+           "synthetic_samples_s": sample_seconds(np)}
+    emit(out)
+    return {**out, "runs": runs}
 
 
 # ------------------------------------------------------------- export
@@ -3961,6 +4269,8 @@ def main(argv=None) -> int:
     lap("host_fold_abba")
     serve_http = phase_serve_http(torch, np, pred, batch)
     lap("serve_http")
+    bench_out = phase_bench(torch, np, dev, smi)
+    lap("bench")
     export = phase_export(torch, np, dev, batch, sd, pred)
     lap("export")
     ops_api = phase_ops_api(torch, np, dev, batch, pred)
@@ -4024,6 +4334,7 @@ def main(argv=None) -> int:
          "launches_data_parallel": dp["launches"][KERNELS["A"]],
          "launches_export_call": export["scatter"]["launches"][KERNELS["A"]],
          "launches_ops_api": ops_api["scatter"]["launches"][KERNELS["A"]],
+         "launches_bench": launches_bench(bench_out, "A"),
          "max_abs_err": 0.0,
          "ms": serve["ms"], "ms_cold": serve["ms_cold"],
          "ms_back_to_back": serve["ms_back_to_back"],
@@ -4059,6 +4370,7 @@ def main(argv=None) -> int:
              two_stage["launches_per_batch"][KERNELS["B"]],
          "launches_harness_resnet50_multistage_eval_forward":
              harness_zoo["kernel_B_launches_per_eval_forward"],
+         "launches_bench": launches_bench(bench_out, "B"),
          "host_us_per_call": {k: epi_host[f"{k}_us"] for k in (
              "bnr_bare_ctypes_launch", "bnr_rdt_op", "bnr_wrapper",
              "host_fold_then_wrapper", "bare_ctypes_launch", "rdt_op",
@@ -4108,6 +4420,7 @@ def main(argv=None) -> int:
          "launches_precision_forward": precision["launches"][KERNELS["C"]],
          "launches_eval_two_stage_per_batch":
              two_stage["launches_per_batch"][KERNELS["C"]],
+         "launches_bench": launches_bench(bench_out, "C"),
          "max_abs_err": 0.0,
          "ms": radar["ms"], "ms_cold": radar["ms_cold"],
          "ms_back_to_back": radar["ms_back_to_back"],
@@ -4138,6 +4451,7 @@ def main(argv=None) -> int:
                        "serve_http_spatial": serve_spatial,
                        "ops_api": ops_api,
                        "serve_http": serve_http, "export": export,
+                       "bench": bench_out,
                        "epilogue_host_us": epi_host,
                        "epilogue_race_check": epi_race,
                        "host_fold_abba": host_fold,

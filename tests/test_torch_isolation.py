@@ -42,7 +42,10 @@ def test_importing_every_module_loads_no_jax():
             "radar_depth_tpu_torch.generate_dataset",
             "radar_depth_tpu_torch.import_pickles",
             "radar_depth_tpu_torch.rehearse",
-            "radar_depth_tpu_torch.export_oracle"} <= set(mods)
+            "radar_depth_tpu_torch.export_oracle",
+            "radar_depth_tpu_torch.bench",
+            "radar_depth_tpu_torch.bench_latency",
+            "radar_depth_tpu_torch.bench_serve_concurrency"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
