@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out chiprun_out/chip_smoke.json]
 
 Phases, each printing one JSON line:
-  build          compile the three CUDA kernels from csrc/ (one nvcc each, in
+  build          compile the four CUDA sources from csrc/ (one nvcc each, in
                  parallel), with ptxas's registers, shared memory and spills
   device         torch's device name, and nvidia-smi's name and power limit
   zbuffer        kernel A, twice, against its plain version (bit equality;
@@ -20,6 +20,16 @@ Phases, each printing one JSON line:
                  P=640) and LiDAR density (B=8, P=40960), and on the same
                  edge cases; warm, L2-cold and back-to-back times, device
                  time, plain, sort and scatter_reduce_ times
+  bn_train       kernel D (csrc/bn_train.cu) at each of the flagship's 106
+                 train-mode BN sites (recorded from a train-mode forward) at
+                 B=32 bfloat16 and B=8 float32, and on edge cases (one lane,
+                 ragged rows, a 1x1 map): statistics, gradient sums and
+                 input gradient within stated tolerances of the plain
+                 versions, the apply and its running update bit-equal given
+                 the same statistics, the BN through autograd against
+                 plain=True, two runs bit-equal; per kernel warm and L2-cold
+                 ms against the bound, plain ms and F.batch_norm's forward
+                 and backward, summed per train step
   serve          the flagship (resnet18_multistage/upproj, 450x800, 5 sweeps,
                  bfloat16, seeded random weights) through Predictor: predict on
                  B=8, 5, 16 and predict_stream over 3 batches, with the kernels'
@@ -135,7 +145,8 @@ Phases, each printing one JSON line:
   train          the flagship's train step at B=8 on SyntheticNuScenes(seed=0):
                  10 float32 and 10 bfloat16 steps on a repeated batch (loss
                  finite and falling), 3 steps with gt_augment="rerasterize",
-                 launch counts per step, img/s and peak memory (and B=32
+                 launch counts per step (kernel C 1, each of kernel D's four
+                 106), img/s and peak memory (and B=32
                  bfloat16 if it fits); one float32 step of the kernel path
                  against the plain path on the card (TF32 off) and against the
                  CPU on a small input
@@ -605,6 +616,291 @@ def phase_zbuffer_sorted(torch, dev, batch, flush):
     return results
 
 
+# ------------------------------------------------------------- kernel D
+
+# (dtype, batch) of phase bn_train: the train cell's B=32 bfloat16 and phase
+# train's B=8 float32, each at every train-mode BN site of the flagship
+BN_TRAIN_CONFIGS = (("bfloat16", 32), ("float32", 8))
+BN_MOMENTUM = 0.9  # the model's retain factor (models/layers.py::make_norm)
+# kernel vs plain statistics: float32 sums in another order (Welford and
+# Chan's combine against torch's var_mean), the mean's error relative to
+# the channel's std, the variance's to the variance
+BN_STATS_RTOL = 2e-5
+# the gradient sums: float32 sums in another order, each error relative to
+# the same formula applied to the sums of |terms|
+BN_GRAD_RTOL = 1e-5
+# the input gradient given the same per-channel inputs: dmean/N and 2dvar/N
+# rounded once (the kernel divides, torch on the card multiplies by 1/N), so
+# float32 elements differ by a few ulps of their terms and a bf16 element by
+# at most one bf16 rounding step; relative to the largest |dx|
+BN_DX_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# kernel path against plain path end to end through autograd (statistics
+# differ in their last bits, so y and every gradient do too; bf16 outputs
+# flip roundings): relative L2 error of y and each gradient
+BN_E2E_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+BN_SLEEP_CYCLES = 20_000_000  # ~10 ms: covers 10 enqueued kernel-D calls
+
+
+def bn_train_sites(torch, dev):
+    """(C, H, W, relu, residual) of every train-mode BN call of one flagship
+    forward at 450x800, in forward order: a B=1 train-mode forward on the
+    card without autograd, each BatchNorm's call seen by a pre-hook."""
+    from radar_depth_tpu_torch.models import (BatchNorm, create_model,
+                                              init_random)
+    from radar_depth_tpu_torch.ops.preprocess import pack_model_inputs
+
+    model, spec = create_model("resnet18_multistage", device="cpu",
+                               output_size=(H, W))
+    model = init_random(model, 0).to(dev).train()
+    sites = []
+
+    def hook(module, args, kwargs):
+        x = args[0]
+        sites.append((*x.shape[1:], bool(kwargs.get("relu")),
+                      kwargs.get("residual") is not None))
+
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
+               for m in model.modules() if isinstance(m, BatchNorm)]
+    g = torch.Generator(device=dev).manual_seed(0)
+    prepared = {"rgb": torch.rand(1, H, W, 3, device=dev, generator=g),
+                "radar": torch.rand(1, H, W, 1, device=dev, generator=g) * 50}
+    with torch.no_grad():
+        model(*pack_model_inputs(prepared, spec.input_kind))
+    for h in handles:
+        h.remove()
+    del model
+    torch.cuda.empty_cache()
+    return sites
+
+
+def bn_bytes(shape, dtype_size, relu, residual) -> dict:
+    """Logical bytes of each kernel-D call at a site: each tensor read once,
+    each output written once; (C,) float32 vectors included."""
+    c = shape[1]
+    e = math.prod(shape) * dtype_size
+    return {"bn_stats": e + 2 * c * 4,
+            "bn_apply": e * (2 + residual) + 8 * c * 4,
+            "bn_grad_stats": e * (2 + relu + residual) + 7 * c * 4,
+            "bn_grad_input": e * (3 + relu) + 6 * c * 4}
+
+
+def bn_rel(torch, got, want, scale) -> float:
+    """max |got - want| / scale over the channels (float64)."""
+    d = (got.double() - want.double()).abs() / scale.clamp_min(1e-30)
+    return float(d.max())
+
+
+def bn_rel_l2(torch, got, want) -> float:
+    d = float((got.detach().double() - want.detach().double()).norm())
+    return d / max(float(want.detach().double().norm()), 1e-30)
+
+
+def bn_train_case(torch, dev, shape, dtype, relu, residual, g, flush,
+                  timed=True) -> dict:
+    """Kernel D at one site (NCHW ``shape``, x's ``dtype``) against its
+    plain versions on the same inputs: statistics within BN_STATS_RTOL,
+    the apply and its running update bit-equal given the kernel's
+    statistics, the gradient sums within BN_GRAD_RTOL (d residual
+    bit-equal), the input gradient within BN_DX_RTOL, the whole BN through
+    autograd against plain=True within BN_E2E_RTOL, and two runs of every
+    kernel bit-equal; then each kernel's warm and L2-cold ms against its
+    bound, the plain versions' ms and F.batch_norm's forward and backward
+    (the yardstick: it stores the unbiased running variance)."""
+    from radar_depth_tpu_torch.ops import kernels as K
+
+    cl = torch.channels_last
+    t = getattr(torch, dtype)
+    c = shape[1]
+    mk = lambda: (torch.randn(shape, device=dev, generator=g) * 2 + 0.5).to(
+        t).contiguous(memory_format=cl)
+    x, dy = mk(), mk()
+    res = mk() if residual else None
+    w, b, rm, rv = bn_params(torch, dev, g, c)
+    run = lambda: (rm.clone(), rv.clone(), BN_MOMENTUM)
+
+    mean, var = K.bn_stats(x)
+    pmean, pvar = K.bn_stats_reference(x)
+    err = {"mean": bn_rel(torch, mean, pmean, pvar.double().sqrt()),
+           "var": bn_rel(torch, var, pvar, pvar.double())}
+    absmax = lambda u, v: float((u.double() - v.double()).abs().max())
+    abs_err = {"bn_stats": max(absmax(mean, pmean), absmax(var, pvar))}
+    rk, rp = run(), run()
+    y = K.bn_apply(x, mean, var, w, b, EPS, res, relu, rk)
+    yp = K.bn_apply_reference(x, mean, var, w, b, EPS, res, relu, rp)
+    apply_differ = int(bits_differ(torch, y, yp)[0].sum())
+    running_equal = all(torch.equal(a.view(torch.int32), p.view(torch.int32))
+                        for a, p in zip(rk[:2], rp[:2]))
+    gk = K.bn_grad_stats(dy, y, x, mean, var, w, EPS, relu, residual)
+    gp = K.bn_grad_stats_reference(dy, y, x, mean, var, w, EPS, relu,
+                                   residual)
+    da = (dy.masked_fill(y <= 0, 0) if relu else dy).double()
+    xc = x.double() - mean.double().view(1, -1, 1, 1)
+    a1 = da.abs().sum((0, 2, 3))
+    a2 = (da * xc).abs().sum((0, 2, 3))
+    r = (var.double() + EPS).rsqrt()
+    w64 = w.double().abs()
+    for name, got, want, scale in (
+            ("dweight", gk[1], gp[1], a2 * r), ("dbias", gk[2], gp[2], a1),
+            ("dmean", gk[3], gp[3], a1 * r * w64),
+            ("dvar", gk[4], gp[4], 0.5 * a2 * w64 * r ** 3)):
+        err[name] = bn_rel(torch, got, want, scale)
+    dres_equal = (not residual) or torch.equal(gk[0], gp[0])
+    abs_err["bn_apply"] = absmax(y, yp)
+    abs_err["bn_grad_stats"] = max(absmax(u, v) for u, v in zip(gk[1:],
+                                                                gp[1:]))
+    dx = K.bn_grad_input(dy, y, x, mean, var, w, EPS, gp[3], gp[4], relu)
+    dxp = K.bn_grad_input_reference(dy, y, x, mean, var, w, EPS, gp[3],
+                                    gp[4], relu)
+    abs_err["bn_grad_input"] = absmax(dx, dxp)
+    err["dx"] = abs_err["bn_grad_input"] / max(
+        float(dxp.double().abs().max()), 1e-30)
+
+    # two runs of each kernel on the same inputs: the same bits
+    again = (K.bn_stats(x), K.bn_apply(x, mean, var, w, b, EPS, res, relu),
+             K.bn_grad_stats(dy, y, x, mean, var, w, EPS, relu, residual),
+             K.bn_grad_input(dy, y, x, mean, var, w, EPS, gp[3], gp[4], relu))
+    first = ((mean, var), y, gk, dx)
+    flat = lambda o: [u for u in (o if isinstance(o, tuple) else (o,))
+                      if u is not None]
+    repeatable = all(torch.equal(u, v) for f, a in zip(first, again)
+                     for u, v in zip(flat(f), flat(a)))
+
+    # the whole BN through autograd, kernels against plain=True
+    def through(plain):
+        xi = x.detach().requires_grad_(True)
+        ri = None if res is None else res.detach().requires_grad_(True)
+        wi, bi = w.detach().requires_grad_(True), b.detach().requires_grad_(
+            True)
+        link = K.BnTrainLink()
+        m, v = K.bn_train_moments(xi, plain, link)
+        out = K.bn_train_apply(xi, m, v, wi, bi, EPS, ri, relu, run(), plain,
+                               link)
+        ins = [xi, wi, bi] + ([ri] if ri is not None else [])
+        return (out, *torch.autograd.grad(out, ins, dy))
+
+    e2e = [bn_rel_l2(torch, u, v) for u, v in zip(through(False),
+                                                 through(True))]
+    err["e2e"] = max(e2e)
+    ok = (all(err[k] <= BN_STATS_RTOL for k in ("mean", "var"))
+          and all(err[k] <= BN_GRAD_RTOL
+                  for k in ("dweight", "dbias", "dmean", "dvar"))
+          and err["dx"] <= BN_DX_RTOL[dtype] and err["e2e"]
+          <= BN_E2E_RTOL[dtype] and apply_differ == 0 and running_equal
+          and dres_equal and repeatable)
+    out = {"shape_nchw": list(shape), "dtype": dtype, "relu": relu,
+           "residual": residual, "err": err, "abs_err": abs_err,
+           "e2e_rel_l2": e2e,
+           "apply_bits_differ": apply_differ, "running_bit_equal":
+           running_equal, "dres_bit_equal": dres_equal,
+           "repeatable": repeatable, "ok": ok}
+    if not ok:
+        raise AssertionError(f"bn_train {out}")
+    if not timed:
+        return out
+
+    bound = {k: v / HBM_BYTES_PER_S * 1e3 for k, v in
+             bn_bytes(shape, x.element_size(), relu, residual).items()}
+    calls = {
+        "bn_stats": (lambda: K.bn_stats(x),
+                     lambda: K.bn_stats_reference(x)),
+        "bn_apply": (lambda: K.bn_apply(x, mean, var, w, b, EPS, res, relu,
+                                        rk),
+                     lambda: K.bn_apply_reference(x, mean, var, w, b, EPS,
+                                                  res, relu, rp)),
+        "bn_grad_stats": (
+            lambda: K.bn_grad_stats(dy, y, x, mean, var, w, EPS, relu,
+                                    residual),
+            lambda: K.bn_grad_stats_reference(dy, y, x, mean, var, w, EPS,
+                                              relu, residual)),
+        "bn_grad_input": (
+            lambda: K.bn_grad_input(dy, y, x, mean, var, w, EPS, gp[3], gp[4],
+                                    relu),
+            lambda: K.bn_grad_input_reference(dy, y, x, mean, var, w, EPS,
+                                              gp[3], gp[4], relu))}
+    ms = lambda fn, **kw: cuda_ms(torch, fn, iters=10,
+                                  sleep_cycles=BN_SLEEP_CYCLES, **kw)
+    timing = {}
+    for name, (fn, plain) in calls.items():
+        timing[name] = {"ms": ms(fn), "ms_cold": ms(fn, flush=flush),
+                        "plain_ms": ms(plain), "bound_ms": bound[name]}
+    xg = x.detach().requires_grad_(True)
+
+    def yardstick():
+        yb = torch.nn.functional.batch_norm(
+            xg, rm.clone(), rv.clone(), w, b, training=True,
+            momentum=1 - BN_MOMENTUM, eps=EPS)
+        torch.autograd.grad(yb, (xg,), dy)
+
+    try:
+        timing["f_batch_norm_fwd_bwd_ms"] = ms(yardstick)
+    except RuntimeError as e:  # a dtype pairing it does not take
+        timing["f_batch_norm_fwd_bwd_ms"] = None
+        timing["f_batch_norm_error"] = str(e)[:200]
+    out["timing"] = timing
+    return out
+
+
+def phase_bn_train(torch, dev, flush):
+    """Kernel D at every train-mode BN site of the flagship (106 per
+    forward), at B=32 bfloat16 and B=8 float32 (``bn_train_case`` at each
+    distinct site, its times counted as often as the site occurs), and the
+    sums per train step: warm and L2-cold ms of each kernel against its
+    bound, the plain versions' and F.batch_norm's."""
+    sites = bn_train_sites(torch, dev)
+    if len(sites) != FLAGSHIP_TRAIN_SITES:
+        raise AssertionError(f"bn_train: {len(sites)} train-mode BN sites "
+                             f"per flagship forward, not "
+                             f"{FLAGSHIP_TRAIN_SITES}")
+    counts = {}
+    for s in sites:
+        counts[s] = counts.get(s, 0) + 1
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {"phase": "bn_train", "sites_per_forward": len(sites),
+           "distinct_sites": len(counts)}
+    for dtype, batch in BN_TRAIN_CONFIGS:
+        rows, per_step = [], {}
+        for (c, h, w, relu, residual), n in counts.items():
+            r = bn_train_case(torch, dev, (batch, c, h, w), dtype, relu,
+                              residual, g, flush)
+            r["sites"] = n
+            rows.append(r)
+            for name, t in r["timing"].items():
+                if isinstance(t, dict):
+                    acc = per_step.setdefault(name, {})
+                    for k, v in t.items():
+                        acc[k] = acc.get(k, 0.0) + n * v
+            torch.cuda.empty_cache()
+        yard = [r["timing"]["f_batch_norm_fwd_bwd_ms"] for r in rows]
+        out[f"{dtype}_b{batch}"] = {
+            "per_step_ms": per_step,
+            "per_step_ms_total": {k: sum(t[k] for t in per_step.values())
+                                  for k in ("ms", "ms_cold", "plain_ms",
+                                            "bound_ms")},
+            "f_batch_norm_fwd_bwd_ms_per_step": (
+                None if None in yard else sum(
+                    r["sites"] * r["timing"]["f_batch_norm_fwd_bwd_ms"]
+                    for r in rows)),
+            "max_err": {k: max(r["err"][k] for r in rows)
+                        for k in rows[0]["err"]},
+            "max_abs_err": {k: max(r["abs_err"][k] for r in rows)
+                            for k in rows[0]["abs_err"]},
+            "sites": rows}
+    # odd channel counts (one lane) and ragged rows, untimed
+    out["edge_cases"] = [
+        bn_train_case(torch, dev, shape, dtype, relu, residual, g, flush,
+                      timed=False)["err"]
+        for shape, dtype, relu, residual in (
+            ((3, 5, 7, 9), "float32", True, True),
+            ((2, 12, 5, 3), "bfloat16", True, False),
+            ((1, 24, 1, 1), "bfloat16", False, False),
+            ((5, 33, 17, 19), "bfloat16", True, True))]
+    emit({k: v for k, v in out.items()
+          if k not in ("bfloat16_b32", "float32_b8")}
+         | {k: {kk: vv for kk, vv in out[k].items() if kk != "sites"}
+            for k in ("bfloat16_b32", "float32_b8")})
+    return out
+
+
 # ------------------------------------------------------------- kernel B
 
 
@@ -879,13 +1175,62 @@ def reset_launches():
 
 
 def read_launches():
+    """Every kernel's launches since ``reset_launches``; kernel D's four
+    counters only where they are not 0, so that an eval-mode expectation,
+    which names A, B and C, holds D at 0 too."""
     from radar_depth_tpu_torch.ops import kernels
 
-    return {fn: getattr(kernels, fn).launches for fn in KERNELS.values()}
+    return {fn: getattr(kernels, fn).launches for k, fn in KERNELS.items()
+            if k not in BN_TRAIN or getattr(kernels, fn).launches}
 
 
 KERNELS = {"A": "zbuffer_min_depth", "B": "scale_bias_relu",
-           "C": "zbuffer_min_depth_sorted"}
+           "C": "zbuffer_min_depth_sorted",
+           # kernel D, the train-mode BN: forward statistics and apply,
+           # backward gradient sums and input gradient
+           "D1": "bn_stats", "D2": "bn_apply", "D3": "bn_grad_stats",
+           "D4": "bn_grad_input"}
+BN_TRAIN = ("D1", "D2", "D3", "D4")
+D_NAMES = tuple(KERNELS[k] for k in BN_TRAIN)
+# train-mode BNs per flagship forward: 2 stages x (2 encoders x 20, the
+# fusion's bn2, 4 UpProj blocks x 3)
+FLAGSHIP_TRAIN_SITES = 106
+
+
+def bn_sites(model) -> int:
+    """The train-mode BN sites of ``model``: each BatchNorm runs once per
+    forward."""
+    from radar_depth_tpu_torch.models import BatchNorm
+
+    return sum(isinstance(m, BatchNorm) for m in model.modules())
+
+
+def cfg_bn_sites(cfg) -> int:
+    """``bn_sites`` of the model a TrainConfig builds."""
+    from radar_depth_tpu_torch.train.loop import build_model
+
+    return bn_sites(build_model(cfg, "cpu")[0])
+
+
+def bn_train_launches(sites, steps, recomputed=0) -> dict:
+    """Kernel D's launches over ``steps`` train steps (micro-batches) of a
+    model with ``sites`` train-mode BNs, ``recomputed`` of them run again in
+    the backward (--remat): statistics and apply per forward call, gradient
+    sums and input gradient per site in the backward."""
+    if not steps:
+        return {}
+    fwd, bwd = (sites + recomputed) * steps, sites * steps
+    return {KERNELS["D1"]: fwd, KERNELS["D2"]: fwd, KERNELS["D3"]: bwd,
+            KERNELS["D4"]: bwd}
+
+
+def sum_launches(*counts) -> dict:
+    """Launch dicts added key by key (a missing key: 0)."""
+    out = {}
+    for c in counts:
+        for k, n in c.items():
+            out[k] = out.get(k, 0) + n
+    return out
 
 
 class tf32:
@@ -1465,13 +1810,14 @@ def bench_run(torch, dev, name, main, argv, calls, per_call):
     lines, seconds = run_entry(main, argv)
     launches = read_launches()
     n = calls(lines) if callable(calls) else calls
-    want = {KERNELS[k]: per * n for k, per in per_call.items()}
+    want = {KERNELS[k]: per * n for k, per in per_call.items()
+            if per * n or k not in BN_TRAIN}
     if launches != want:
         raise AssertionError(f"{name} {argv}: launches {launches} over {n} "
                              f"calls, expected {want}")
     out = {"phase": "bench", "run": name, "argv": argv, "lines": lines,
            "seconds": seconds, "calls": n, "launches": launches,
-           "launches_per_call": {KERNELS[k]: launches[KERNELS[k]] / n
+           "launches_per_call": {KERNELS[k]: launches.get(KERNELS[k], 0) / n
                                  for k in per_call},
            "mem_before_gib": base / 2**30,
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
@@ -1596,7 +1942,7 @@ def sample_seconds(np, n=8):
 def launches_bench(bench_out, kernel):
     """A kernel's launches per forward or step (per micro-batch) in each
     run of phase bench."""
-    return {name: r["launches_per_call"][KERNELS[kernel]]
+    return {name: r["launches_per_call"].get(KERNELS[kernel], 0)
             for name, r in bench_out["runs"].items()}
 
 
@@ -1609,7 +1955,8 @@ def phase_bench(torch, np, dev, smi):
                                        bench_serve_concurrency)
 
     serve = {"A": 0, "B": EPILOGUE_SITES_PER_FORWARD, "C": 1}
-    step = {"A": 0, "B": 0, "C": 1}  # per micro-batch
+    step = {"A": 0, "B": 0, "C": 1,  # per micro-batch
+            **{k: FLAGSHIP_TRAIN_SITES for k in BN_TRAIN}}
     daemon = {"A": 0, "B": LATEFUSION_SITES, "C": 1}
     daemon_forwards = lambda lines: sum(LADDER_TILES + x["device_dispatches"]
                                         for x in lines)
@@ -2051,8 +2398,11 @@ def phase_train(torch, np, dev, batch):
             losses, times = run_steps(torch, dev, step, state, b8,
                                       TRAIN_STEPS)
         launches[dtype] = read_launches()
+        if bn_sites(model) != FLAGSHIP_TRAIN_SITES:
+            raise AssertionError(f"train {dtype}: {bn_sites(model)} BN sites")
         want = {KERNELS["A"]: 0, KERNELS["B"]: 0,
-                KERNELS["C"]: TRAIN_STEPS}
+                KERNELS["C"]: TRAIN_STEPS,
+                **bn_train_launches(FLAGSHIP_TRAIN_SITES, TRAIN_STEPS)}
         if launches[dtype] != want:
             raise AssertionError(f"train {dtype}: launches "
                                  f"{launches[dtype]}, expected {want}")
@@ -2073,7 +2423,8 @@ def phase_train(torch, np, dev, batch):
     reset_launches()
     losses, _ = run_steps(torch, dev, step, state, b8, 3)
     launches["rerasterize"] = read_launches()
-    want = {KERNELS["A"]: 0, KERNELS["B"]: 0, KERNELS["C"]: 6}
+    want = {KERNELS["A"]: 0, KERNELS["B"]: 0, KERNELS["C"]: 6,
+            **bn_train_launches(FLAGSHIP_TRAIN_SITES, 3)}
     if launches["rerasterize"] != want:
         raise AssertionError(f"rerasterize launches "
                              f"{launches['rerasterize']}, expected {want}")
@@ -2179,6 +2530,8 @@ def _category(name: str) -> str:
         return "kernel_C_zbuffer_sorted"
     if "zb_" in n:
         return "kernel_A_zbuffer"
+    if "bnt_" in n:
+        return "kernel_D_bn_train"
     if "foreach" in n:
         return "optimizer"
     if "memcpy" in n or "memset" in n:
@@ -2342,7 +2695,8 @@ def phase_host_fold_abba(torch, np, pred, batch, reps=6):
 
 def phase_profile_train(torch, dev, trained, batch):
     """One B=8 train step of each dtype (float32 with TF32 off), with
-    phase train's cuDNN algorithms."""
+    phase train's cuDNN algorithms; the launches of its two steps (a warm
+    one, then the profiled one) counted."""
     b8 = {k: v[:B_TRAIN] for k, v in batch.items()}
     gen = torch.Generator(device=dev)
     out = {}
@@ -2351,9 +2705,17 @@ def phase_profile_train(torch, dev, trained, batch):
             gen.manual_seed(0)
             step(state, b8, generator=gen)
 
+        reset_launches()
         with deterministic_cudnn(torch, False):
             out[dtype] = profile_device(torch, one_step,
                                         f"profile_train_{dtype}", B_TRAIN)
+        launches = read_launches()
+        want = {KERNELS["A"]: 0, KERNELS["B"]: 0, KERNELS["C"]: 2,
+                **bn_train_launches(FLAGSHIP_TRAIN_SITES, 2)}
+        if launches != want:
+            raise AssertionError(f"profile_train {dtype}: launches "
+                                 f"{launches}, expected {want}")
+        out[dtype]["launches_two_steps"] = launches
     return out
 
 
@@ -2513,8 +2875,11 @@ def zoo_train(torch, dev, entry, batch, sd=None):
     launches = read_launches()
     losses, times = losses + more, times + more_t
     per_step = 0 if cfg.data.sparsifier != "none" else 1
+    sites = bn_sites(model)  # --remat recomputes both stages, every BN
     want = {KERNELS["A"]: 0, KERNELS["B"]: 0,
-            KERNELS["C"]: per_step * entry["steps"]}
+            KERNELS["C"]: per_step * entry["steps"],
+            **bn_train_launches(sites, entry["steps"],
+                                sites if cfg.model.remat else 0)}
     if launches != want:
         raise AssertionError(f"zoo train {entry['name']}: launches "
                              f"{launches}, expected {want}")
@@ -2665,7 +3030,9 @@ class count_by_phase:
                 after = read_launches()
                 acc = self.counts[name]
                 for k in after:
-                    acc[k] = acc.get(k, 0) + after[k] - before[k]
+                    delta = after[k] - before.get(k, 0)
+                    if delta or k not in D_NAMES:
+                        acc[k] = acc.get(k, 0) + delta
         return counted
 
     def __exit__(self, *exc):
@@ -2785,15 +3152,15 @@ def phase_harness(torch, np, dev, bare_step, tmp):
     steps = sum(h["train"]["steps"] for h in r2["history"])
     val_batches = 2 * math.ceil(HARNESS_VAL / B_TRAIN)
     panels = 2  # one panel row per epoch (val_viz_every=50)
-    want_train = {KERNELS["A"]: 0, KERNELS["B"]: 0, KERNELS["C"]: steps}
+    want_train = {KERNELS["A"]: 0, KERNELS["B"]: 0, KERNELS["C"]: steps,
+                  **bn_train_launches(FLAGSHIP_TRAIN_SITES, steps)}
     want_val = {KERNELS["A"]: 0,
                 KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD
                 * (val_batches + panels),
                 KERNELS["C"]: val_batches + panels}
     if (phases.counts["train_epoch"] != want_train
             or phases.counts["validate"] != want_val
-            or launches != {k: want_train[k] + want_val[k]
-                            for k in launches}):
+            or launches != sum_launches(want_train, want_val)):
         raise AssertionError(
             f"harness launches {launches} (train {phases.counts}), "
             f"expected train {want_train}, val {want_val}")
@@ -3091,7 +3458,9 @@ def phase_ingest(torch, np, dev):
                                for t in ("day", "night"))
         want_launches = {
             "train_epoch": {KERNELS["A"]: 0, KERNELS["B"]: 0,
-                            KERNELS["C"]: steps},
+                            KERNELS["C"]: steps,
+                            **bn_train_launches(cfg_bn_sites(r["cfg"]),
+                                                steps)},
             "validate": {KERNELS["A"]: 0, KERNELS["B"]: sites * val_fw,
                          KERNELS["C"]: val_fw},
             "evaluate": {KERNELS["A"]: 0, KERNELS["B"]: sites * eval_fw,
@@ -3099,9 +3468,9 @@ def phase_ingest(torch, np, dev):
         got_launches = dict(phases.counts, evaluate=eval_launches)
         if (got_launches != want_launches
                 or steps != n_train // INGEST_BATCH
-                or train_launches != {
-                    k: want_launches["train_epoch"][k]
-                    + want_launches["validate"][k] for k in train_launches}):
+                or train_launches != sum_launches(
+                    want_launches["train_epoch"],
+                    want_launches["validate"])):
             raise AssertionError(f"ingest launches {got_launches} (train "
                                  f"{train_launches}), expected "
                                  f"{want_launches}")
@@ -3188,7 +3557,8 @@ def phase_harness_zoo(torch, tmp):
     train, val = phases.counts["train_epoch"], phases.counts["validate"]
     if (steps != ZOO_TRAINER_TRAIN // B_TRAIN
             or train != {KERNELS["A"]: 0, KERNELS["B"]: 0,
-                         KERNELS["C"]: steps}
+                         KERNELS["C"]: steps,
+                         **bn_train_launches(cfg_bn_sites(r["cfg"]), steps)}
             or val[KERNELS["B"]] != ZOO_TRAINER_SITES * val[KERNELS["C"]]
             or not math.isfinite(h["train"]["loss"])
             or not math.isfinite(h["val"]["rmse"])):
@@ -3539,7 +3909,7 @@ def phase_data_parallel(torch, np, dev, batch, tmp):
     mesh = mesh_from_env(free_ports()[0])
     if (mesh.backend, mesh.world, mesh.device) != (DP_BACKEND, 1, dev):
         raise AssertionError(f"data_parallel mesh {mesh}")
-    a, dp_launches = {}, {k: 0 for k in KERNELS.values()}
+    a, dp_launches = {}, {}
     try:
         with deterministic_cudnn(torch):
             for dtype in ("float32", "bfloat16"):
@@ -3547,7 +3917,8 @@ def phase_data_parallel(torch, np, dev, batch, tmp):
                 plain = dp_steps(torch, dev, cfg, sd, b8, None)
                 dp = dp_steps(torch, dev, cfg, sd, b8, mesh)
                 want = {KERNELS["A"]: 0, KERNELS["B"]: 0,
-                        KERNELS["C"]: DP_STEPS}
+                        KERNELS["C"]: DP_STEPS,
+                        **bn_train_launches(FLAGSHIP_TRAIN_SITES, DP_STEPS)}
                 if plain["launches"] != want or dp["launches"] != want:
                     raise AssertionError(
                         f"data_parallel {dtype} launches {plain['launches']}"
@@ -3563,8 +3934,7 @@ def phase_data_parallel(torch, np, dev, batch, tmp):
                     raise AssertionError(f"data_parallel {dtype}: the 1-rank "
                                          "group's steps differ from the plain"
                                          " steps")
-                for k, n in dp["launches"].items():
-                    dp_launches[k] += n
+                dp_launches = sum_launches(dp_launches, dp["launches"])
                 a[dtype] = {
                     "bit_equal": bit_equal,
                     "losses": [x["loss"] for x in dp["sums"]],
@@ -3592,8 +3962,7 @@ def phase_data_parallel(torch, np, dev, batch, tmp):
                 raise AssertionError(f"data_parallel eval: launches "
                                      f"{ev_launches}, sums {got_ev} vs "
                                      f"{want_ev}")
-            for k, n in ev_launches.items():
-                dp_launches[k] += n
+            dp_launches = sum_launches(dp_launches, ev_launches)
             a["eval"] = {"launches": ev_launches, "bit_equal": True,
                          "collectives": dict(pm.COLLECTIVES)}
             grads = [torch.ones_like(p) for p in model.parameters()]
@@ -3642,7 +4011,8 @@ def phase_data_parallel(torch, np, dev, batch, tmp):
     ev_err = max(abs(lines[r]["eval_sums"][k] - float(v))
                  / max(abs(float(v)), 1e-30)
                  for r in lines for k, v in ref_ev.items())
-    want_train = {KERNELS["A"]: 0, KERNELS["B"]: 0, KERNELS["C"]: 1}
+    want_train = {KERNELS["A"]: 0, KERNELS["B"]: 0, KERNELS["C"]: 1,
+                  **bn_train_launches(FLAGSHIP_TRAIN_SITES, 1)}
     want_eval = {KERNELS["A"]: 0, KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD,
                  KERNELS["C"]: 1}
     if (sorted(lines) != [0, 1] or ev_err > SUMS_RTOL
@@ -3931,7 +4301,8 @@ def phase_spatial(torch, np, dev, batch, tmp):
             want_model, steps[i]["sums"], ref_sums[i],
             f"spatial step {i} vs 1 process"))
         del got_model, want_model
-    want_train = {KERNELS["A"]: 0, KERNELS["B"]: 0, KERNELS["C"]: 1}
+    want_train = {KERNELS["A"]: 0, KERNELS["B"]: 0, KERNELS["C"]: 1,
+                  **bn_train_launches(FLAGSHIP_TRAIN_SITES, 1)}
     for r in range(SPATIAL):
         for i, st in enumerate(lines[r]["steps"]):
             if (not st["replicated"] or st["launches"] != want_train
@@ -4183,6 +4554,44 @@ def profile_harness(torch, base, out_dir):
         tr.close()
 
 
+def bn_train_summary(bnt, train_launches, harness, dp, bench_out) -> list:
+    """The summary line's entries of kernel D's four wrappers: times summed
+    over a flagship train step's 106 sites at B=32 bfloat16 (phase
+    bn_train; the B=8 float32 sums beside them), launches from the main
+    path's runs."""
+    bf, f32 = bnt["bfloat16_b32"], bnt["float32_b8"]
+    out = []
+    for letter in BN_TRAIN:
+        name = KERNELS[letter]
+        t = bf["per_step_ms"][name]
+        out.append({
+            "name": name, "route": "cuda",
+            "op": f"kernels.{name} (ctypes; autograd: kernels."
+                  "bn_train_moments, bn_train_apply)",
+            "source": "radar_depth_tpu_torch/csrc/bn_train.cu",
+            "replaces": "none: flax nn.BatchNorm under XLA "
+                        "(radar_depth_tpu/models/layers.py:273)",
+            "launches": train_launches["bfloat16"][name],
+            "launches_per_train_step": train_launches["bfloat16"][name]
+            // TRAIN_STEPS,
+            "launches_harness": harness["launches"].get(name, 0),
+            "launches_data_parallel": dp["launches"].get(name, 0),
+            "launches_bench": launches_bench(bench_out, letter),
+            "max_abs_err": max(bf["max_abs_err"][name],
+                               f32["max_abs_err"][name]),
+            "ms": t["ms"], "ms_cold": t["ms_cold"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "bound_share": t["bound_ms"] / t["ms_cold"],
+            "library_ms": None,
+            "shape": "every train-mode BN site of one flagship step, B=32 "
+                     "bfloat16, summed",
+            "float32_b8": f32["per_step_ms"][name]})
+    out[0]["yardstick_f_batch_norm_fwd_bwd_ms_per_step"] = {
+        "bfloat16_b32": bf["f_batch_norm_fwd_bwd_ms_per_step"],
+        "float32_b8": f32["f_batch_norm_fwd_bwd_ms_per_step"]}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
@@ -4256,6 +4665,8 @@ def main(argv=None) -> int:
     lap("zbuffer")
     zbs = phase_zbuffer_sorted(torch, dev, batch, flush)
     lap("zbuffer_sorted")
+    bnt = phase_bn_train(torch, dev, flush)
+    lap("bn_train")
     del flush
     launches, launches_sc, speed, parity, pred, sites = phase_serve(
         torch, np, dev, batch, sd)
@@ -4428,12 +4839,14 @@ def main(argv=None) -> int:
          "bound_ms": radar["bound_ms"], "bound_by": "bytes",
          "bound_share": radar["bound_share"],
          "library_ms": radar["library_ms"]},
+        *bn_train_summary(bnt, train_launches, harness, dp, bench_out),
     ]}
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"device": {"torch_name": kind, "nvidia_smi": smi},
-                       "zbuffer": zb, "zbuffer_sorted": zbs, "epilogue": epi,
+                       "zbuffer": zb, "zbuffer_sorted": zbs,
+                       "bn_train": bnt, "epilogue": epi,
                        "speed": speed, "parity": parity,
                        "launches": {"serve": launches,
                                     "serve_scatter": launches_sc,

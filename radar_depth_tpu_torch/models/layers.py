@@ -5,9 +5,10 @@ Mirrors ``radar_depth_tpu/models/layers.py``. Convolutions go to cuDNN
 through ``torch.nn.functional``. Modules follow ``train()`` / ``eval()``: in
 eval mode every BN that is followed by a ReLU runs as kernel B
 (``ops/kernels.py::batch_norm_relu``, the BN folded inside the kernel), with
-its optional residual; in train mode BN normalizes with batch statistics in
-plain PyTorch with autograd, as flax's ``BatchNorm`` does in plain XLA in the
-JAX package.
+its optional residual; in train mode BN normalizes with batch statistics
+through kernel D (``ops/kernels.py::bn_train_moments``, ``bn_train_apply``:
+statistics, apply with its residual and ReLU, and their backward), where
+flax's ``BatchNorm`` is plain XLA in the JAX package.
 
 Parameter names follow the flax tree: a conv's ``kernel`` is ``weight``
 (OIHW), a BN's ``scale``/``bias`` are ``weight``/``bias`` and its
@@ -204,19 +205,22 @@ class BatchNorm(nn.Module):
     mean*scale`` are float32; ``forward(x, relu=True, residual=r)`` is
     ``relu(bn(x) + r)`` through kernel B, which folds the BN's parameters and
     running statistics itself (one launch), and without ``relu`` the BN is
-    plain PyTorch. ``plain=True`` sends kernel B's sites to its plain version
-    (``folded()``, then ``scale_bias_relu_reference``) on any device (the
-    reference on the card, set by ``use_plain_kernels``).
+    plain PyTorch. ``plain=True`` sends kernel B's and kernel D's sites to
+    their plain versions (kernel B's: ``folded()``, then
+    ``scale_bias_relu_reference``) on any device (the reference on the card,
+    set by ``use_plain_kernels``).
 
-    Train mode: flax's ``BatchNorm`` in plain PyTorch with autograd. Batch
-    statistics in (at least) float32 over (N, H, W), the variance biased,
-    both for normalizing and for the running update ``running =
-    momentum*running + (1-momentum)*batch`` (torch's own ``F.batch_norm``
-    would store the unbiased variance). The variance is taken in two passes:
-    flax's one-pass E[x^2] - E[x]^2 is the same quantity but loses digits in
-    float32 where a channel's mean dwarfs its spread. With a data mesh that
-    has a process group (``use_mesh``) the statistics are those of the
-    global batch (``parallel/mesh.py::global_moments``), as the JAX step
+    Train mode: flax's ``BatchNorm`` through kernel D (``ops/kernels.py::
+    bn_train_moments`` then ``bn_train_apply``, two autograd nodes; their
+    plain versions on the CPU). Batch statistics in (at least) float32 over
+    (N, H, W), the variance biased, both for normalizing and for the running
+    update ``running = momentum*running + (1-momentum)*batch`` (torch's own
+    ``F.batch_norm`` would store the unbiased variance), done by the apply.
+    The variance is not flax's one-pass E[x^2] - E[x]^2, which loses digits
+    in float32 where a channel's mean dwarfs its spread: the plain version
+    takes two passes, the kernel Welford's and Chan's formulas. With a data
+    mesh that has a process group (``use_mesh``) the statistics are those of
+    the global batch (``parallel/mesh.py::global_moments``), as the JAX step
     computes them over its one graph, each rank's moments weighted by its
     share of the elements (row slabs of a spatial mesh differ by a row);
     eval mode is unchanged.
@@ -259,23 +263,16 @@ class BatchNorm(nn.Module):
                                        self.epsilon)
 
     def _train_forward(self, x, relu, residual):
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        link = kernels.BnTrainLink()
+        mean, var = kernels.bn_train_moments(x, self.plain, link)
         if is_distributed(self.mesh):
             mean, var = global_moments(mean, var, self.mesh,
                                        self._share(x))
-        if self.update_stats:
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
-        mul = torch.rsqrt(var + self.epsilon) * self.weight
-        y = ((xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
-             + self.bias.view(1, -1, 1, 1)).to(x.dtype)
-        if residual is not None:
-            y = y + residual
-        return torch.relu(y) if relu else y
+        running = ((self.running_mean, self.running_var, self.momentum)
+                   if self.update_stats else None)
+        return kernels.bn_train_apply(x, mean, var, self.weight, self.bias,
+                                      self.epsilon, residual, relu, running,
+                                      self.plain, link)
 
     def forward(self, x: torch.Tensor, relu: bool = False,
                 residual: torch.Tensor | None = None) -> torch.Tensor:
@@ -301,7 +298,8 @@ def make_norm(channels: int, device=None) -> BatchNorm:
 
 
 def use_plain_kernels(model: nn.Module, plain: bool = True) -> nn.Module:
-    """Route every kernel-B site of ``model`` to the plain version."""
+    """Route every kernel-B and kernel-D site of ``model`` (its BatchNorms)
+    to the plain versions."""
     for m in model.modules():
         if isinstance(m, BatchNorm):
             m.plain = plain

@@ -361,9 +361,11 @@ def global_moments(mean: torch.Tensor, var: torch.Tensor, mesh: DataMesh,
     hold fewer), then the weighted mean of ``var_r + (mean_r - mean)^2``,
     which is sum (x - mean)^2 / N over the global batch; differentiable,
     through three all-reduces (two forward, one backward). Each rank's
-    moments come from its own two-pass ``var_mean``, so the variance keeps
-    the digits of a two-pass one, and at world 1 the result and its
-    gradients have the bits of the rank's own moments. A share computed as
+    moments come from its own ``kernels.bn_train_moments`` (kernel D's
+    statistics pass on the card, Welford's and Chan's formulas; the
+    two-pass ``var_mean`` on the CPU), so the variance keeps the digits of
+    a two-pass one, and at world 1 the result and its gradients have the
+    bits of the rank's own moments. A share computed as
     n_r / N is 1/world to the bit when the counts are equal."""
     return _GlobalMoments.apply(mean, var, mesh,
                                 1.0 / mesh.world if share is None else share)

@@ -145,8 +145,8 @@ def make_micro_grad_fn(model: torch.nn.Module, spec: ArchSpec,
     loader's threads (``data/packed.py::NativeBatchLoader(augment=...)``),
     so the step runs the eval preprocessing (the radar through the z-buffer,
     the GT the stored ``lidar_depth`` map) and draws nothing. ``plain=True``
-    runs the z-buffer's plain version (the reference on the card); kernel B
-    does not run in train mode.
+    runs the z-buffer's and the train-mode BN's (kernel D's) plain versions
+    (the reference on the card); kernel B does not run in train mode.
 
     ``mesh`` with a process group (module docstring): ``batch`` is this
     rank's rows, ``aug_params`` and ``sparse_u`` if given are the global
@@ -161,7 +161,7 @@ def make_micro_grad_fn(model: torch.nn.Module, spec: ArchSpec,
     def micro_grads(batch: Dict, aug_params=None,
                     generator: torch.Generator | None = None,
                     sparse_u=None):
-        use_mesh(model.train(), mesh)
+        use_mesh(use_plain_kernels(model.train(), plain), mesh)
         if mesh is not None:
             aug_params, sparse_u = _global_draws(
                 batch, pre, mesh, _device(model), aug_params, generator,

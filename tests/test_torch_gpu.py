@@ -388,3 +388,70 @@ def test_conv_then_kernel_b_race_on_card(site):
 
     out = chip_smoke.epilogue_race_check(torch, torch.device("cuda"), site)
     assert out["iters"] == 200 and out["mismatched_elements"] == 0
+
+
+BN_TRAIN_CASES = [  # (NCHW shape, relu, residual): lanes of 16 bytes, ragged
+    ((8, 64, 57, 100), True, True),  # rows, one lane (C=5, 33), a 1x1 map
+    ((4, 512, 15, 25), False, False),
+    ((3, 5, 7, 9), True, True),
+    ((5, 33, 17, 19), True, False),
+    ((1, 24, 1, 1), False, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(BN_TRAIN_CASES)))
+def test_bn_train_kernels_match_plain_versions_on_card(dtype, case):
+    """Kernel D's four calls against their plain versions on the same
+    inputs (chip_smoke.bn_train_case, which raises on a failure): the
+    statistics, gradient sums and input gradient within its stated
+    tolerances, the apply and its running update bit-equal given the
+    kernel's statistics, the BN through autograd against plain=True, two
+    runs bit-equal; one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    import chip_smoke as cs
+
+    dev = torch.device("cuda")
+    shape, relu, residual = BN_TRAIN_CASES[case]
+    names = ("bn_stats", "bn_apply", "bn_grad_stats", "bn_grad_input")
+    for n in names:
+        getattr(kernels, n).launches = 0
+    out = cs.bn_train_case(torch, dev, shape, dtype, relu, residual,
+                           torch.Generator(device=dev).manual_seed(case),
+                           None, timed=False)
+    assert out["ok"] and out["apply_bits_differ"] == 0
+    # checked once, repeated once, and once more through autograd
+    assert [getattr(kernels, n).launches for n in names] == [3, 3, 3, 3]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_step_goes_through_kernel_d_on_card(dtype):
+    """One train step of the flagship at B=2, 64x96 on the card: each of
+    kernel D's four calls once per train-mode BN site (106), kernel B
+    never; the BN's running statistics and the loss finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    import chip_smoke as cs
+    from radar_depth_tpu_torch.data import SampleSpec, SyntheticNuScenes
+
+    dev = torch.device("cuda")
+    dt = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    cfg = cs.train_config(dt, height=64, width=96, sweeps=2)
+    model, spec, state, step = cs.train_setup(torch, cfg, dev)
+    batch = SyntheticNuScenes(2, spec=SampleSpec(
+        height=64, width=96, num_sweeps=2, lidar_points=2048),
+        seed=1).batch(range(2))
+    cs.reset_launches()
+    sums = step(state, batch, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    got = cs.read_launches()
+    assert cs.bn_sites(model) == cs.FLAGSHIP_TRAIN_SITES
+    assert got == {"zbuffer_min_depth": 0, "scale_bias_relu": 0,
+                   "zbuffer_min_depth_sorted": 1,
+                   **cs.bn_train_launches(cs.FLAGSHIP_TRAIN_SITES, 1)}
+    assert np.isfinite(float(sums["loss"]))
+    assert all(torch.isfinite(t).all() for k, t in
+               model.state_dict().items() if k.endswith("running_var"))
