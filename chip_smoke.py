@@ -52,7 +52,8 @@ Phases, each printing one JSON line:
   profile        device time by kernel category over one B=8 predict call,
                  its device events and device kernels, kernel B's device us
                  at each of its sites
-  host_fold_abba the served flagship B=8 forward with the BN fold inside
+  host_fold_abba (eager: it patches in Python what a graph would not see)
+                 the served flagship B=8 forward with the BN fold inside
                  kernel B (rdt::batch_norm_relu) against the same forward
                  with the fold patched back onto the host (five eager ops
                  per site, then rdt::scale_bias_relu), in turns: launches,
@@ -109,6 +110,31 @@ Phases, each printing one JSON line:
                  beside it; utils.profiling.device_trace (the card by
                  default) around one served B=8 forward, its trace naming
                  rdt::batch_norm_relu and rdt::zbuffer_min_depth_sorted
+  graphs         the served forward and the train step on their per-shape
+                 CUDA graphs (graphs.py) against the eager path in the same
+                 process (graphs.disable_graphs): five B=8 predict calls on
+                 seeds 1-5 in bfloat16 and float32 and predict_stream (depth
+                 2) bit-equal to an eager Predictor with the same weights,
+                 launches of the replays equal to the eager calls'; a
+                 forward pre-hook firing on every call (eager under it);
+                 five B=32 bfloat16 flagship train steps (host-augmented
+                 batch, the train cell's path) bit-equal to five eager steps
+                 (parameters, momentum, BN running statistics, every step's
+                 sums and launches), a learning-rate decay and a written
+                 and reloaded state (--resume's optimizer load_state_dict)
+                 each capturing anew; steps drawing from a card generator
+                 against eager ones (registered with the graph where torch
+                 offers CUDAGraph.register_generator_state, else eager and
+                 said so); a traced replay of the served B=8 bf16 forward
+                 and of the B=32 train step, each kernel's device kernels
+                 in the trace (by symbol, KERNEL_SYMBOLS) equal to what the
+                 replay added to its launch counter and to the eager
+                 call's launches; in turns, the parent's eager path and the
+                 graph: host ms to enqueue a B=8 bf16 predict, its e2e ms
+                 and peak GiB; eager against graph B=32 train img/s on a
+                 resident batch, host ms per step, peak and reserved GiB;
+                 host us per device kernel of a replay, per path; each
+                 beside nvidia-smi's line
   zoo            the rest of the registry at full width (bfloat16, B=8,
                  seeded random weights), each through Predictor with its
                  kernel B sites per forward checked against the module
@@ -250,6 +276,7 @@ Full per-case results go to --out.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -1191,6 +1218,15 @@ KERNELS = {"A": "zbuffer_min_depth", "B": "scale_bias_relu",
            "D1": "bn_stats", "D2": "bn_apply", "D3": "bn_grad_stats",
            "D4": "bn_grad_input"}
 BN_TRAIN = ("D1", "D2", "D3", "D4")
+# the device kernels that one launch of each wrapper runs, by the symbol a
+# trace names them with (csrc/*.cu): kernel D's reductions run a part and
+# a combine kernel; kernel A's scatter (skipped with no points) is left out
+KERNEL_SYMBOLS = {"A": ("zb_zero",), "B": ("sbr_kernel",),
+                  "C": ("zbs_walk",),
+                  "D1": ("bnt_stats_part", "bnt_stats_combine"),
+                  "D2": ("bnt_apply",),
+                  "D3": ("bnt_grad_part", "bnt_grad_combine"),
+                  "D4": ("bnt_grad_input",)}
 D_NAMES = tuple(KERNELS[k] for k in BN_TRAIN)
 # train-mode BNs per flagship forward: 2 stages x (2 encoders x 20, the
 # fusion's bn2, 4 UpProj blocks x 3)
@@ -2211,6 +2247,7 @@ def phase_ops_api(torch, np, dev, batch, pred):
     import shutil
     import tempfile
 
+    from radar_depth_tpu_torch.graphs import disable_graphs
     from radar_depth_tpu_torch.ops import radar_to_depth_map
     from radar_depth_tpu_torch.utils.profiling import annotate, device_trace
 
@@ -2240,12 +2277,14 @@ def phase_ops_api(torch, np, dev, batch, pred):
                         "plain_ms": cuda_ms(torch, lambda: fn(plain=True))}
 
     take = {k: v[:B_SERVE] for k, v in batch.items()}
-    pred.predict(take)
     tmp = tempfile.mkdtemp(prefix="rdt-trace-")
-    try:
+    # eager: a graph's replay dispatches no operator for the trace to name
+    with disable_graphs():
+        pred.predict(take)
         with device_trace(tmp):
             with annotate("served_forward_b8"):
                 pred.predict(take)
+    try:
         files = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
         if len(files) != 1:
             raise AssertionError(f"device_trace wrote {files}")
@@ -2261,6 +2300,446 @@ def phase_ops_api(torch, np, dev, batch, pred):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit(out)
+    return out
+
+
+# ---------------------------------------------------------------- graphs
+
+GRAPH_SEEDS = (1, 2, 3, 4, 5)  # the served batches of phase graphs
+GRAPH_TRAIN_B = 32  # the train cell's batch
+GRAPH_TRAIN_STEPS = 5
+GRAPH_DECAY_EVERY = 3  # steps per epoch of phase graphs' schedule: lr decays
+GRAPH_GEN_STEPS = 4  # in-step augmentation steps drawing from a generator
+GRAPH_REPS = 8  # rounds of each timing, the modes in turns (ABBA)
+GRAPH_TRAIN_TIMED = 10  # steps per mode and round of the train timing
+
+
+def graph_states_equal(torch, a, b) -> bool:
+    """Parameters, BN running statistics and SGD momentum of two train
+    states bit-equal."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    ma = [s["momentum_buffer"] for s in a.optimizer.state.values()]
+    mb = [s["momentum_buffer"] for s in b.optimizer.state.values()]
+    return (sa.keys() == sb.keys() and len(ma) == len(mb) > 0
+            and all(torch.equal(sa[k], sb[k]) for k in sa)
+            and all(torch.equal(x, y) for x, y in zip(ma, mb)))
+
+
+def sums_equal(torch, got, want) -> bool:
+    return (len(got) == len(want) and all(
+        g.keys() == w.keys() and all(torch.equal(g[k], w[k]) for k in w)
+        for g, w in zip(got, want)))
+
+
+def graph_train_state(torch, dev, cfg, seed=0, steps_per_epoch=1000,
+                      host_augmented=True):
+    """The flagship's train state and step as bench.py's train mode builds
+    them (bfloat16 compute, float32 parameters), phase train's weights."""
+    from radar_depth_tpu_torch.models import create_model
+    from radar_depth_tpu_torch.train.state import create_train_state
+    from radar_depth_tpu_torch.train.step import make_train_step
+
+    model, spec = create_model(
+        cfg.model.arch, device=dev, output_size=(H, W),
+        dtype=cfg.model.torch_dtype, param_dtype=torch.float32)
+    train_init(torch, model, seed)
+    state = create_train_state(model, cfg.optim, steps_per_epoch)
+    return state, make_train_step(model, spec, cfg,
+                                  host_augmented=host_augmented)
+
+
+def graph_serving(torch, np, dev, sd, dtype, batches):
+    """One dtype of phase graphs' serving checks: a graphed Predictor
+    against an eager one with the same weights (``disable_graphs``),
+    ``predict`` on each batch and ``predict_stream`` with depth 2, bit-equal,
+    the launches of N replays equal to N eager calls."""
+    from radar_depth_tpu_torch import graphs
+    from radar_depth_tpu_torch.config import ServeConfig
+    from radar_depth_tpu_torch.inference import Predictor
+
+    cfg = ServeConfig(arch="resnet18_multistage", decoder="upproj", height=H,
+                      width=W, num_sweeps=5, dtype=dtype)
+    graphed, eager = Predictor(cfg, sd, device=dev), Predictor(cfg, sd,
+                                                               device=dev)
+    reset_launches()
+    got = [graphed.predict(b) for b in batches]
+    launches = read_launches()
+    reset_launches()
+    with graphs.disable_graphs():
+        want = [eager.predict(b) for b in batches]
+    launches_eager = read_launches()
+    stats = dict(graphed.graphs.stats)
+    got_stream = list(graphed.predict_stream(iter(batches), depth=2))
+    with graphs.disable_graphs():
+        want_stream = list(eager.predict_stream(iter(batches), depth=2))
+    out = {
+        "predict_bit_equal": all(np.array_equal(g, w)
+                                 for g, w in zip(got, want)),
+        "stream_bit_equal": all(np.array_equal(g, w) for g, w
+                                in zip(got_stream, want_stream)),
+        "launches": launches, "launches_eager": launches_eager,
+        "stats_after_predict": stats,
+        "stats": dict(graphed.graphs.stats)}
+    want_stats = {"eager": 1, "captures": 1, "replays": len(batches) - 1}
+    if (not out["predict_bit_equal"] or not out["stream_bit_equal"]
+            or launches != launches_eager or stats != want_stats
+            or launches[KERNELS["B"]] != EPILOGUE_SITES_PER_FORWARD
+            * len(batches) or eager.graphs.stats["replays"]):
+        raise AssertionError(f"graphs, serving {dtype}: {out}")
+    return out, graphed, eager
+
+
+def graph_hooks(torch, graphed, batch):
+    """A forward pre-hook on the model fires on every call: the Predictor
+    runs eagerly under it, and replays again once it is removed."""
+    fired = []
+    before = dict(graphed.graphs.stats)
+    handle = graphed.model.register_forward_pre_hook(
+        lambda *a: fired.append(1))
+    try:
+        for _ in range(3):
+            graphed.predict(batch)
+    finally:
+        handle.remove()
+    graphed.predict(batch)
+    after = graphed.graphs.stats
+    out = {"hook_calls": len(fired),
+           "eager_calls": after["eager"] - before["eager"],
+           "replays_after_removal": after["replays"] - before["replays"]}
+    if out != {"hook_calls": 3, "eager_calls": 3,
+               "replays_after_removal": 1}:
+        raise AssertionError(f"graphs, hooks: {out}")
+    return out
+
+
+def replay_trace(torch, graphed, fn, want):
+    """One replay of ``fn`` (already captured) traced: the device kernels
+    of each wrapper in the trace, by symbol (KERNEL_SYMBOLS), against what
+    the replay added to the wrappers' launch counters (graphs.py adds the
+    capture's counts; no wrapper runs) and against ``want``, the launches
+    of one eager call. Every symbol of a wrapper must appear as often as
+    the counter says, so a count that graphs.py adds without the kernel in
+    the replay fails here. Also the replay's device kernels, all of them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm: the graph's pool and the profiler's first costs
+    torch.cuda.synchronize()
+    before = dict(graphed.stats)
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counted = read_launches()
+    symbols = {sym: 0 for syms in KERNEL_SYMBOLS.values() for sym in syms}
+    device_kernels = 0
+    for e in prof.key_averages():
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        if _category(e.key) != "memcpy":
+            device_kernels += e.count
+        for sym in symbols:
+            if sym in e.key:
+                symbols[sym] += e.count
+    traced = {KERNELS[k]: symbols[syms[0]]
+              for k, syms in KERNEL_SYMBOLS.items()}
+    stats = {k: graphed.stats[k] - before[k] for k in before}
+    out = {"counted": counted, "traced": traced, "symbols": symbols,
+           "device_kernels": device_kernels, "stats": stats}
+    one = {KERNELS[k]: want.get(KERNELS[k], 0) for k in KERNEL_SYMBOLS}
+    if (stats != {"eager": 0, "captures": 0, "replays": 1}
+            or traced != one
+            or any(counted.get(KERNELS[k], 0) != one[KERNELS[k]]
+                   or any(symbols[sym] != one[KERNELS[k]] for sym in syms)
+                   for k, syms in KERNEL_SYMBOLS.items())):
+        raise AssertionError(f"graphs, traced replay: {out}, want {one}")
+    return out
+
+
+def graph_serve_timing(torch, np, pred, batch, smi):
+    """The served bf16 B=8 path in two modes, in turns (the order reversed
+    every round), medians over GRAPH_REPS rounds: ``eager`` (the parent's
+    path: eager forward) and ``graph`` (the shipped one), both with the
+    pageable upload. Per mode: host ms of ``infer`` on the numpy tile
+    (upload and enqueue; the card idle before), e2e ms of the tile to a host
+    map (``predict``), and peak GiB allocated over one call. Then, on a
+    batch already on the card: a replay traced (``replay_trace``), and the
+    host us per device kernel of a replay."""
+    from radar_depth_tpu_torch import graphs
+    from radar_depth_tpu_torch.ops.preprocess import to_device
+
+    modes = ("eager", "graph")
+
+    def setting(mode):
+        return graphs.disable_graphs() if mode == "eager" else (
+            contextlib.nullcontext())
+
+    for mode in modes:  # both paths warm: the graph captured
+        with setting(mode):
+            pred.infer(batch).cpu(), pred.infer(batch).cpu()
+    host, e2e, peak = ({m: [] for m in modes} for _ in range(3))
+    for r in range(GRAPH_REPS):
+        for mode in (modes if r % 2 == 0 else modes[::-1]):
+            with setting(mode):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pred.infer(batch)
+                host[mode].append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                pred.infer(batch).cpu().numpy()  # predict of one full tile
+                e2e[mode].append((time.perf_counter() - t0) * 1e3)
+                peak[mode].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    resident = to_device(batch, pred.device)
+    with graphs.disable_graphs():
+        eager_prof = device_profile(torch, lambda: pred.infer(resident))
+    graph_prof = device_profile(torch, lambda: pred.infer(resident))
+    trace = replay_trace(torch, pred.graphs, lambda: pred.infer(resident),
+                         {KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD,
+                          KERNELS["C"]: 1})
+    replay_ms = []
+    for _ in range(GRAPH_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.infer(resident)
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    med = statistics.median
+    return {
+        "nvidia_smi": smi, "batch": B_SERVE, "dtype": "bfloat16",
+        "host_ms": {m: med(v) for m, v in host.items()},
+        "host_ms_all": host,
+        "e2e_ms": {m: med(v) for m, v in e2e.items()}, "e2e_ms_all": e2e,
+        "peak_gib": {m: max(v) for m, v in peak.items()},
+        "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
+        "replay_host_ms_resident": med(replay_ms),
+        "device_kernels_per_forward_eager": eager_prof["device_kernels"],
+        "replay_traced": trace,
+        "replay_host_us_per_device_kernel": med(replay_ms) * 1e3
+        / trace["device_kernels"],
+        "device_busy_ms": {"eager": eager_prof["device_busy_ms"],
+                           "graph": graph_prof["device_busy_ms"]},
+        "wall_ms_profiled": {"eager": eager_prof["wall_ms"],
+                             "graph": graph_prof["wall_ms"]}}
+
+
+def graph_training(torch, dev, batch32, smi):
+    """Five B=32 bf16 flagship steps on the graph (a learning-rate decay
+    after three, which captures anew) bit-equal to five eager steps from the
+    same weights: parameters, momentum, BN running statistics, every step's
+    sums, launches; then the state written and loaded back as ``--resume``
+    does (an optimizer ``load_state_dict``: new momentum buffers), so the
+    next step, at a learning rate already captured, runs eagerly at a new
+    key; three more steps of each (a second decay among them), equal
+    again."""
+    from radar_depth_tpu_torch import graphs
+    from radar_depth_tpu_torch.train.state import (
+        load_state_dict,
+        state_to_dict,
+    )
+
+    cfg = train_config("bfloat16")
+    cfg = dataclasses.replace(cfg, batch_size=GRAPH_TRAIN_B,
+                              optim=dataclasses.replace(cfg.optim,
+                                                        lr_decay_epochs=1))
+    runs = {}
+    for mode in ("graph", "eager"):
+        state, step = graph_train_state(torch, dev, cfg,
+                                        steps_per_epoch=GRAPH_DECAY_EVERY)
+        ctx = (graphs.disable_graphs() if mode == "eager"
+               else contextlib.nullcontext())
+        with ctx:
+            reset_launches()
+            sums = [step(state, batch32) for _ in range(GRAPH_TRAIN_STEPS)]
+            torch.cuda.synchronize()
+            launches = read_launches()
+            first = {k: v.clone() for k, v in sums[0].items()}
+            lrs = [g["lr"] for g in state.optimizer.param_groups]
+            stats = dict(step.graphs.stats)
+            load_state_dict(state, state_to_dict(state))
+            resumed = [step(state, batch32)]
+            stats_resumed = dict(step.graphs.stats)
+            resumed += [step(state, batch32) for _ in range(2)]
+        runs[mode] = {"state": state, "sums": sums + resumed,
+                      "first": first, "launches": launches, "lrs": lrs,
+                      "stats": stats, "stats_resumed": stats_resumed,
+                      "stats_end": dict(step.graphs.stats)}
+    g, e = runs["graph"], runs["eager"]
+    out = {
+        "states_bit_equal": graph_states_equal(torch, g["state"],
+                                               e["state"]),
+        "sums_bit_equal": sums_equal(torch, g["sums"], e["sums"]),
+        "first_sums_kept": all(torch.equal(g["first"][k], g["sums"][0][k])
+                               for k in g["first"]),
+        "launches": g["launches"], "launches_eager": e["launches"],
+        "lr_after": g["lrs"][0], "stats": g["stats"],
+        "stats_first_resumed_step": g["stats_resumed"],
+        "stats_end": g["stats_end"]}
+    want = {"eager": 2, "captures": 2, "replays": 3}
+    want_resumed = {"eager": 3, "captures": 2, "replays": 3}
+    want_end = {"eager": 4, "captures": 3, "replays": 4}
+    if (not (out["states_bit_equal"] and out["sums_bit_equal"]
+             and out["first_sums_kept"])
+            or g["launches"] != e["launches"]
+            or g["launches"] != bn_train_launches(
+                FLAGSHIP_TRAIN_SITES, GRAPH_TRAIN_STEPS) | {
+                    KERNELS["A"]: 0, KERNELS["B"]: 0,
+                    KERNELS["C"]: GRAPH_TRAIN_STEPS}
+            or g["stats"] != want or g["stats_resumed"] != want_resumed
+            or g["stats_end"] != want_end):
+        raise AssertionError(f"graphs, training: {out}")
+
+    # img/s in turns on a resident batch (bench.py's train mode), one state
+    # at one learning rate: eager, graph
+    from radar_depth_tpu_torch.ops.preprocess import to_device
+
+    batch32 = to_device(batch32, dev)
+    state, step = graph_train_state(torch, dev, cfg)
+    step(state, batch32), step(state, batch32)  # eager, then captured
+    secs, peak = {"eager": [], "graph": []}, {"eager": 0.0, "graph": 0.0}
+    for r in range(GRAPH_REPS // 2):
+        for mode in (("eager", "graph") if r % 2 == 0
+                     else ("graph", "eager")):
+            ctx = (graphs.disable_graphs() if mode == "eager"
+                   else contextlib.nullcontext())
+            with ctx:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                for _ in range(GRAPH_TRAIN_TIMED):
+                    sums = step(state, batch32)
+                float(sums["loss"])
+                secs[mode].append(time.perf_counter() - t0)
+                peak[mode] = max(peak[mode],
+                                 torch.cuda.max_memory_allocated() / 2 ** 30)
+    host_ms = {"eager": [], "graph": []}  # one step's enqueue, card idle
+    for r in range(GRAPH_REPS):
+        for mode in ("eager", "graph"):
+            with (graphs.disable_graphs() if mode == "eager"
+                  else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(state, batch32)
+                host_ms[mode].append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    trace = replay_trace(torch, step.graphs, lambda: step(state, batch32),
+                         bn_train_launches(FLAGSHIP_TRAIN_SITES, 1)
+                         | {KERNELS["C"]: 1})
+    rate = {m: GRAPH_TRAIN_B * GRAPH_TRAIN_TIMED / statistics.median(v)
+            for m, v in secs.items()}
+    host_step = {m: statistics.median(v) for m, v in host_ms.items()}
+    out["timing"] = {"nvidia_smi": smi, "batch": GRAPH_TRAIN_B,
+                     "img_per_s": rate,
+                     "img_per_s_all": {m: [GRAPH_TRAIN_B * GRAPH_TRAIN_TIMED
+                                           / s for s in v]
+                                       for m, v in secs.items()},
+                     "peak_gib": peak,
+                     "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
+                     "host_ms_per_step": host_step,
+                     "host_ms_per_step_all": host_ms,
+                     "replay_traced": trace,
+                     "replay_host_us_per_device_kernel":
+                         host_step["graph"] * 1e3 / trace["device_kernels"]}
+    return out
+
+
+def graph_generator(torch, dev, batch8):
+    """Steps that augment in the step, drawing from a card generator: with
+    ``CUDAGraph.register_generator_state`` the graph draws what the eager
+    steps draw (sums, states and the generator's state equal after
+    GRAPH_GEN_STEPS steps); without it the step stays eager."""
+    from radar_depth_tpu_torch import graphs
+
+    cfg = train_config("bfloat16")
+    runs = {}
+    for mode in ("graph", "eager"):
+        state, step = graph_train_state(torch, dev, cfg,
+                                        host_augmented=False)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        ctx = (graphs.disable_graphs() if mode == "eager"
+               else contextlib.nullcontext())
+        with ctx:
+            sums = [step(state, batch8, generator=gen)
+                    for _ in range(GRAPH_GEN_STEPS)]
+            torch.cuda.synchronize()
+        runs[mode] = (state, sums, gen.get_state(), dict(step.graphs.stats))
+    (gs, gsum, gstate, stats), (es, esum, estate, _) = (runs["graph"],
+                                                        runs["eager"])
+    supported = graphs.can_register_generators()
+    out = {"register_generator_state": supported, "stats": stats,
+           "states_bit_equal": graph_states_equal(torch, gs, es),
+           "sums_bit_equal": sums_equal(torch, gsum, esum),
+           "generator_state_equal": bool(torch.equal(gstate, estate))}
+    want = ({"eager": 1, "captures": 1, "replays": GRAPH_GEN_STEPS - 1}
+            if supported else {"eager": GRAPH_GEN_STEPS, "captures": 0,
+                               "replays": 0})
+    if not supported:
+        out["note"] = ("this torch has no CUDAGraph.register_generator_state:"
+                       " a step that draws from a generator runs eagerly")
+    if (stats != want or not out["states_bit_equal"]
+            or not out["sums_bit_equal"] or not out["generator_state_equal"]):
+        raise AssertionError(f"graphs, generator: {out}")
+    return out
+
+
+def graphs_summary(kernels, graphs_out):
+    """Phase graphs' numbers in each kernel's entry of the summary line:
+    its launches over the five served calls and the five train steps on
+    the graphs, its launches in each path's traced replay, and each path's
+    host us per device kernel of a replay, given to the kernels that run on
+    that path."""
+    replays = {"serve_bfloat16_b8": graphs_out["serve_timing"],
+               "train_bfloat16_b32": graphs_out["training"]["timing"]}
+    for k in kernels:
+        k["launches_graphs"] = {
+            "serve_bfloat16_b8_5_calls": graphs_out["serving"]["bfloat16"][
+                "launches"].get(k["name"], 0),
+            "train_bfloat16_b32_5_steps": graphs_out["training"][
+                "launches"].get(k["name"], 0)}
+        k["launches_graph_replay_traced"] = {
+            path: r["replay_traced"]["traced"][k["name"]]
+            for path, r in replays.items()}
+        k["replay_host_us_per_device_kernel"] = {
+            path: r["replay_host_us_per_device_kernel"]
+            for path, r in replays.items()
+            if r["replay_traced"]["traced"][k["name"]]}
+
+
+def phase_graphs(torch, np, dev, sd, smi):
+    """The served forward and the train step on their per-shape CUDA graphs
+    (graphs.py) against the eager path (module docstring)."""
+    from radar_depth_tpu_torch import bench
+    from radar_depth_tpu_torch.data import SampleSpec
+
+    spec = SampleSpec(height=H, width=W, num_sweeps=5)
+    batches = [bench.synthetic_batch(spec, B_SERVE, s) for s in GRAPH_SEEDS]
+    out = {"phase": "graphs", "nvidia_smi": smi,
+           "register_generator_state": None}
+    serving = {}
+    for dtype in ("bfloat16", "float32"):
+        serving[dtype], graphed, eager = graph_serving(torch, np, dev, sd,
+                                                       dtype, batches)
+        if dtype == "bfloat16":
+            out["hooks"] = graph_hooks(torch, graphed, batches[0])
+            out["serve_timing"] = graph_serve_timing(torch, np, graphed,
+                                                     batches[0], smi)
+        del graphed, eager
+    out["serving"] = serving
+    torch.cuda.empty_cache()
+    batch32 = bench.synthetic_batch(spec, GRAPH_TRAIN_B, 0)
+    out["training"] = graph_training(torch, dev, batch32, smi)
+    torch.cuda.empty_cache()
+    out["generator"] = graph_generator(
+        torch, dev, {k: v[:B_TRAIN] for k, v in batch32.items()})
+    out["register_generator_state"] = out["generator"][
+        "register_generator_state"]
+    torch.cuda.empty_cache()
+    emit(out)
+    if "note" in out["generator"]:
+        print(f"graphs: {out['generator']['note']}", flush=True)
     return out
 
 
@@ -4617,6 +5096,7 @@ def main(argv=None) -> int:
         import numpy as np
 
         from radar_depth_tpu_torch.data import SampleSpec, SyntheticNuScenes
+        from radar_depth_tpu_torch import graphs
         from radar_depth_tpu_torch.models import create_model, init_random
         from radar_depth_tpu_torch.ops import kernels
     except ImportError as e:
@@ -4676,7 +5156,8 @@ def main(argv=None) -> int:
     prof, kernel_b_us_by_site = phase_profile(
         torch, pred, {k: v[:B_SERVE] for k, v in batch.items()}, sites)
     lap("profile")
-    host_fold = phase_host_fold_abba(torch, np, pred, batch)
+    with graphs.disable_graphs():  # it patches kernel B's op in Python
+        host_fold = phase_host_fold_abba(torch, np, pred, batch)
     lap("host_fold_abba")
     serve_http = phase_serve_http(torch, np, pred, batch)
     lap("serve_http")
@@ -4686,6 +5167,8 @@ def main(argv=None) -> int:
     lap("export")
     ops_api = phase_ops_api(torch, np, dev, batch, pred)
     lap("ops_api")
+    graphs_out = phase_graphs(torch, np, dev, sd, smi)
+    lap("graphs")
     del pred
     torch.cuda.empty_cache()
     zoo, zoo_sites, prof_zoo = phase_zoo(torch, np, dev, batch)
@@ -4841,6 +5324,7 @@ def main(argv=None) -> int:
          "library_ms": radar["library_ms"]},
         *bn_train_summary(bnt, train_launches, harness, dp, bench_out),
     ]}
+    graphs_summary(summary["kernels"], graphs_out)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
@@ -4862,7 +5346,7 @@ def main(argv=None) -> int:
                        "eval_two_stage": two_stage,
                        "data_parallel": dp, "spatial": spatial,
                        "serve_http_spatial": serve_spatial,
-                       "ops_api": ops_api,
+                       "ops_api": ops_api, "graphs": graphs_out,
                        "serve_http": serve_http, "export": export,
                        "bench": bench_out,
                        "epilogue_host_us": epi_host,

@@ -47,6 +47,7 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from radar_depth_tpu_torch import graphs
 from radar_depth_tpu_torch.data import schema
 from radar_depth_tpu_torch.data.schema import SampleSpec
 from radar_depth_tpu_torch.data.synthetic import SyntheticNuScenes
@@ -130,20 +131,35 @@ def make_infer_fn(model: torch.nn.Module, arch_spec, pre: PreprocessConfig,
                   dev: torch.device, keep: Dict | None = None) -> Callable:
     """One iteration: what ``Predictor.infer`` runs (the eval
     preprocessing, the eval-mode forward in inference mode, the refined
-    head's map) -> (B, H, W) on the device, not waited for. With ``keep``
-    (a dict) each iteration leaves its prepared batch and the model's
-    output there (``keep["prepared"]``, ``keep["out"]``), for a check of
-    what the timed loop computed."""
+    head's map; on the card through one CUDA graph per input shape,
+    ``graphs.py``) -> (B, H, W) on the device, not waited for. With
+    ``keep`` (a dict) each iteration leaves its prepared batch and the
+    model's output there (``keep["prepared"]``, ``keep["out"]``; under a
+    graph the tensors its replay wrote), for a check of what the timed
+    loop computed."""
+
+    def forward(batch: Dict):
+        prepared = prepare_eval_batch(batch, pre, dev)
+        out = model(*pack_model_inputs(prepared, arch_spec.input_kind))
+        pred = out[1] if arch_spec.multistage else out
+        return pred[..., 0], prepared, out
+
+    shapes = (graphs.ShapeGraphs(forward, model,
+                                 fresh=lambda o: (o[0].clone(), o[1], o[2]))
+              if graphs.wanted(dev) else None)
 
     @torch.inference_mode()
     def infer(batch: Dict) -> torch.Tensor:
-        prepared = prepare_eval_batch(batch, pre, dev)
-        out = model(*pack_model_inputs(prepared, arch_spec.input_kind))
+        if shapes is None:
+            pred, prepared, out = forward(batch)
+        else:
+            pred, prepared, out = shapes(to_device(batch, dev),
+                                         key=(model.training,))
         if keep is not None:
             keep["prepared"], keep["out"] = prepared, out
-        pred = out[1] if arch_spec.multistage else out
-        return pred[..., 0]
+        return pred
 
+    infer.graphs = shapes
     return infer
 
 

@@ -18,6 +18,12 @@ kernel A with ``raster_backend="scatter"``) ->
 ``pred[..., 0]``. PyTorch launches asynchronously; the copy of the result to
 the host is the only wait.
 
+On the card (no mesh, not ``plain``) ``infer`` runs that path as one CUDA
+graph per tile shape (``graphs.py``, the counterpart of the JAX Predictor's
+one jitted program per shape): the first call at a shape runs eagerly, the
+second captures, later ones replay. The eager path stays the path on the
+CPU, under a mesh, under a module hook and for ``plain=True``.
+
 Over ranks (``mesh``, ``Predictor.from_run`` with ``spatial`` > 1 under
 ``torchrun``): every rank calls ``predict`` with the same global batch and
 gets the whole (B, H, W) map. Each rank prepares its data-axis rows at
@@ -38,6 +44,7 @@ from typing import Dict, Iterable, Iterator, Mapping
 import numpy as np
 import torch
 
+from radar_depth_tpu_torch import graphs
 from radar_depth_tpu_torch.config import (
     ServeConfig,
     TrainConfig,
@@ -61,6 +68,7 @@ from radar_depth_tpu_torch.ops.preprocess import (
     PreprocessConfig,
     pack_model_inputs,
     prepare_eval_batch,
+    to_device,
 )
 from radar_depth_tpu_torch.parallel.mesh import (
     destroy_mesh,
@@ -142,7 +150,7 @@ class _ServingGraph(torch.nn.Module):
         self.predictor = predictor
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return self.predictor.infer(batch)
+        return self.predictor._infer_eager(batch)
 
 
 class Predictor:
@@ -160,7 +168,10 @@ class Predictor:
     ``keep`` (a dict, None by default) makes each forward leave its
     prepared batch and the model's output there (``keep["prepared"]``,
     ``keep["out"]``, as ``bench.make_infer_fn``), for a check of what a
-    timed run computed."""
+    timed run computed (under a graph, copies of what its replay wrote).
+
+    ``graphs`` (a ``graphs.ShapeGraphs``, or None where the path stays
+    eager) holds the captured forwards."""
 
     def __init__(self, cfg: ServeConfig, state_dict: Mapping,
                  device: str | torch.device | None = None, plain: bool = False,
@@ -184,6 +195,10 @@ class Predictor:
         self._pre = PreprocessConfig(spec=spec,
                                      height_extension=cfg.height_extension,
                                      raster_backend=cfg.raster_backend)
+        self.graphs = (graphs.ShapeGraphs(self._served_map, self.model,
+                                          fresh=self._fresh)
+                       if graphs.wanted(self.device, plain, self.mesh)
+                       else None)
 
     @classmethod
     def from_run(cls, run_dir: str, cfg: TrainConfig | None = None,
@@ -219,32 +234,64 @@ class Predictor:
         destroy_mesh(self._own_mesh)
         self._own_mesh = None
 
-    @torch.inference_mode()
-    def _forward(self, batch: Dict):
-        """This rank's rows (and slab) of the prediction and the target."""
+    def _served(self, batch: Dict):
+        """This rank's rows (and slab): (prediction (B, H, W, 1), the
+        prepared batch, the model's output)."""
         prepared = spatial_constraint(prepare_eval_batch(
             local_rows(batch, self.mesh), self._pre, self.device,
             plain=self.plain), self.mesh)
         out = self.model(*pack_model_inputs(
             prepared, self.arch_spec.input_kind, self.cfg.modality))
-        if self.keep is not None:
-            self.keep.update(prepared=prepared, out=out)
         pred = out[1] if self.arch_spec.multistage else out
         if self.arch_spec.multistage and self.cfg.blend_tau > 0:
             pred = blend_by_brightness(out[0], out[1], prepared["rgb"],
                                        self.cfg.blend_tau, self.mesh)
+        return pred, prepared, out
+
+    def _served_map(self, batch: Dict):
+        pred, prepared, out = self._served(batch)
+        return pred[..., 0], prepared, out
+
+    def _fresh(self, out):
+        """What a replay's caller gets: the map, and with ``keep`` the
+        prepared batch and the model's output, as copies (the next replay at
+        the tile's shape, for another caller's batch, writes the graph's
+        own)."""
+        pred, prepared, model_out = out
+        if self.keep is None:
+            return pred.clone(), prepared, model_out
+        return (pred.clone(), graphs.clone_tree(prepared),
+                graphs.clone_tree(model_out))
+
+    @torch.inference_mode()
+    def _forward(self, batch: Dict):
+        """This rank's rows (and slab) of the prediction and the target."""
+        pred, prepared, out = self._served(batch)
+        if self.keep is not None:
+            self.keep.update(prepared=prepared, out=out)
         return pred, prepared["target"]
 
-    def infer(self, batch: Dict) -> torch.Tensor:
-        """One raw batch -> (B, H, W) float32 prediction on the device,
-        without waiting for it. Over a mesh: the same global batch on every
-        rank (B a multiple of the data axis), the whole map on every
-        rank."""
+    def _infer_eager(self, batch: Dict) -> torch.Tensor:
         pred = self._forward(batch)[0][..., 0]
         if self.mesh is None:
             return pred
         return gather_batch(unslab(pred, self.mesh, self.cfg.height, 1),
                             self.mesh)
+
+    def infer(self, batch: Dict) -> torch.Tensor:
+        """One raw batch -> (B, H, W) float32 prediction on the device,
+        without waiting for it. Over a mesh: the same global batch on every
+        rank (B a multiple of the data axis), the whole map on every
+        rank. On the card: through the tile shape's graph (class
+        docstring)."""
+        if self.graphs is None:
+            return self._infer_eager(batch)
+        with torch.inference_mode():  # the upload before any capture
+            pred, prepared, out = self.graphs(to_device(batch, self.device),
+                                              key=(self.model.training,))
+        if self.keep is not None:
+            self.keep.update(prepared=prepared, out=out)
+        return pred
 
     def evaluate(self, batch: Dict) -> Dict[str, float]:
         """Raw schema batch -> the reference's Result-style metrics against

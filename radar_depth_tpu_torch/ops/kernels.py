@@ -743,6 +743,13 @@ bn_apply.launches = 0
 bn_grad_stats.launches = 0
 bn_grad_input.launches = 0
 
+# the wrappers whose ``.launches`` count a kernel's launches (kernel B's two
+# operators count in ``scale_bias_relu``); a graph's replay adds to each what
+# its capture counted (``graphs.py``)
+LAUNCH_COUNTERS = ("zbuffer_min_depth", "zbuffer_min_depth_sorted",
+                   "scale_bias_relu", "bn_stats", "bn_apply", "bn_grad_stats",
+                   "bn_grad_input")
+
 
 class BnTrainLink:
     """Joins one train-mode BN's two autograd nodes. The apply's backward

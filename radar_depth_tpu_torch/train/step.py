@@ -39,6 +39,7 @@ from typing import Callable, Dict, Sequence
 
 import torch
 
+from radar_depth_tpu_torch import graphs
 from radar_depth_tpu_torch.config import TrainConfig
 from radar_depth_tpu_torch.metrics import compute_metric_sums
 from radar_depth_tpu_torch.models import (
@@ -58,6 +59,7 @@ from radar_depth_tpu_torch.ops.preprocess import (
     pack_model_inputs,
     prepare_eval_batch,
     prepare_train_batch,
+    to_device,
 )
 from radar_depth_tpu_torch.parallel.mesh import (
     all_reduce_sum,
@@ -186,6 +188,33 @@ def make_micro_grad_fn(model: torch.nn.Module, spec: ArchSpec,
     return micro_grads
 
 
+def _draws(pre: PreprocessConfig, host_augmented: bool, aug_params,
+           sparse_u) -> bool:
+    """Whether a step draws from a generator: the sparsifier's uniforms or
+    the augmentation's parameters, where the caller gave none."""
+    if pre.sparsifier != "none":
+        return sparse_u is None
+    return not host_augmented and pre.augment.enabled and aug_params is None
+
+
+def _on_device(tree, dev: torch.device):
+    """``tree`` (arrays, tensors, lists of them, or None) with every array
+    on ``dev``: what ``prepare_train_batch`` would upload, uploaded before a
+    graph's capture, where a copy from the host cannot wait."""
+    if tree is None:
+        return None
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_on_device(v, dev) for v in tree)
+    return torch.as_tensor(tree, device=dev)
+
+
+def _fresh_sums(sums: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A replay's sums, stacked into one new tensor and split again: tensors
+    that the next replay does not overwrite, in one launch."""
+    keys = list(sums)
+    return dict(zip(keys, torch.stack([sums[k] for k in keys]).unbind(0)))
+
+
 def make_train_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
                     plain: bool = False,
                     host_augmented: bool = False, mesh=None) -> Callable:
@@ -200,6 +229,17 @@ def make_train_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
     add up and the loss is divided by N, so its scale matches the plain
     step.
 
+    On the card, with the kernels and without a process group, the step
+    (micro-batches, update and BN running statistics) runs as one CUDA
+    graph (``graphs.py``): the first step at a batch shape and learning
+    rate runs eagerly, the second captures, later ones replay; a new
+    learning rate (a setting of the optimizer's, set before the graph), or
+    an optimizer whose momentum buffers were replaced (``load_state_dict``),
+    captures anew. The step count and the learning
+    rate stay on the host. A step that draws from ``generator`` registers it
+    with its graph where this torch can (else it runs eagerly); the sums
+    are new tensors every step.
+
     ``mesh`` with a process group (module docstring): ``batch`` holds this
     rank's rows (dim 1 of the stacks), ``aug_params`` and ``sparse_u`` if
     given the global batch's; the gradients are summed over ranks in one
@@ -208,30 +248,25 @@ def make_train_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
     micro_grads = make_micro_grad_fn(model, spec, cfg, plain, host_augmented,
                                      mesh)
     accum = max(1, cfg.optim.grad_accum)
+    pre = make_preprocess_config(cfg)
 
     def reduce_grads(grads: Dict[str, torch.Tensor]):
         if mesh is None:
             return grads
         return dict(zip(grads, all_reduce_sum(list(grads.values()), mesh)))
 
-    def apply_update(state: TrainState, grads: Dict[str, torch.Tensor]):
-        for group in state.optimizer.param_groups:
-            group["lr"] = state.schedule(state.step)
+    def apply_update(optimizer, grads: Dict[str, torch.Tensor]):
         for name, p in model.named_parameters():
             p.grad = grads[name]
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
-        state.step += 1
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
 
-    def train_step(state: TrainState, batch: Dict,
-                   generator: torch.Generator | None = None,
-                   aug_params: Sequence | None = None,
-                   sparse_u: Sequence | None = None) -> Dict:
-        if state.model is not model:
-            raise ValueError("state.model is not the model of this step")
+    def update(optimizer, batch: Dict, generator, aug_params,
+               sparse_u) -> Dict:
+        """The step's device work: the micro-batches and the update."""
         if accum == 1:
             grads, sums = micro_grads(batch, aug_params, generator, sparse_u)
-            apply_update(state, reduce_grads(grads))
+            apply_update(optimizer, reduce_grads(grads))
             return sums
         grads, sums = None, None
         for i in range(accum):
@@ -245,10 +280,42 @@ def make_train_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
                 grads = {k: grads[k] + g[k] for k in grads}
                 sums = {k: sums[k] + s[k] for k in sums}
         sums["loss"] = sums["loss"] / accum
-        apply_update(state, {k: g / accum
-                             for k, g in reduce_grads(grads).items()})
+        apply_update(optimizer, {k: g / accum
+                                 for k, g in reduce_grads(grads).items()})
         return sums
 
+    dev = _device(model)
+    shapes = (graphs.ShapeGraphs(update, model, fresh=_fresh_sums,
+                                 max_graphs=1)
+              if graphs.wanted(dev, plain, mesh) else None)
+
+    def train_step(state: TrainState, batch: Dict,
+                   generator: torch.Generator | None = None,
+                   aug_params: Sequence | None = None,
+                   sparse_u: Sequence | None = None) -> Dict:
+        if state.model is not model:
+            raise ValueError("state.model is not the model of this step")
+        lr = state.schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        draws = _draws(pre, host_augmented, aug_params, sparse_u)
+        if shapes is None or (draws and (generator is None
+                                         or generator.device.type != "cuda")):
+            sums = update(state.optimizer, batch, generator, aug_params,
+                          sparse_u)
+        else:
+            # what the step sets on the host, which a replay does not run
+            use_mesh(use_plain_kernels(model.train(), plain), mesh)
+            gen = generator if draws else None
+            sums = shapes(state.optimizer, to_device(batch, dev), gen,
+                          _on_device(aug_params, dev),
+                          _on_device(sparse_u, dev),
+                          generators=(gen,) if draws else (),
+                          optimizer=state.optimizer)
+        state.step += 1
+        return sums
+
+    train_step.graphs = shapes
     return train_step
 
 

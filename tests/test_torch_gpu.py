@@ -5,6 +5,8 @@ build). This file imports no JAX, so it also runs where only the port is
 installed:  python -m pytest tests/test_torch_gpu.py -m gpu -q
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -455,3 +457,69 @@ def test_train_step_goes_through_kernel_d_on_card(dtype):
     assert np.isfinite(float(sums["loss"]))
     assert all(torch.isfinite(t).all() for k, t in
                model.state_dict().items() if k.endswith("running_var"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphs_match_the_eager_path_on_card(dtype):
+    """The flagship at 64x96 on the card through its per-shape CUDA graphs
+    (graphs.py) against the eager path (graphs.disable_graphs) from the same
+    weights: three B=2 predict calls and three host-augmented B=2 train
+    steps bit-equal (maps; parameters, momentum, BN statistics, sums), and
+    each kernel's launches after the replays equal to the eager calls'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    import chip_smoke as cs
+    from radar_depth_tpu_torch import graphs
+    from radar_depth_tpu_torch.config import ServeConfig
+    from radar_depth_tpu_torch.data import SampleSpec, SyntheticNuScenes
+    from radar_depth_tpu_torch.inference import Predictor
+    from radar_depth_tpu_torch.models import create_model, init_random
+    from radar_depth_tpu_torch.train.state import create_train_state
+    from radar_depth_tpu_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    spec = SampleSpec(height=64, width=96, num_sweeps=2, lidar_points=2048)
+    batches = [SyntheticNuScenes(2, spec=spec, seed=s).batch(range(2))
+               for s in range(3)]
+    sd = init_random(create_model("resnet18_multistage", device="cpu",
+                                  output_size=(64, 96))[0], 0).state_dict()
+    cfg = ServeConfig(arch="resnet18_multistage", decoder="upproj",
+                      height=64, width=96, num_sweeps=2, dtype=dtype)
+    maps, launches = {}, {}
+    for mode in ("graph", "eager"):
+        pred = Predictor(cfg, sd, device=dev)
+        ctx = graphs.disable_graphs() if mode == "eager" else \
+            contextlib.nullcontext()
+        with ctx:
+            cs.reset_launches()
+            maps[mode] = [pred.predict(b) for b in batches]
+            launches[mode] = cs.read_launches()
+    assert pred.graphs.stats["replays"] == 0
+    assert all(np.array_equal(a, b) for a, b in zip(maps["graph"],
+                                                    maps["eager"]))
+    assert launches["graph"] == launches["eager"]
+    assert launches["graph"]["scale_bias_relu"] == 3 * 84
+
+    tcfg = cs.train_config(dtype, height=64, width=96, sweeps=2)
+    runs = {}
+    for mode in ("graph", "eager"):
+        model, arch_spec = create_model(
+            "resnet18_multistage", device=dev, output_size=(64, 96),
+            dtype=tcfg.model.torch_dtype, param_dtype=torch.float32)
+        cs.train_init(torch, model, 0)
+        state = create_train_state(model, tcfg.optim, 100)
+        step = make_train_step(model, arch_spec, tcfg, host_augmented=True)
+        ctx = graphs.disable_graphs() if mode == "eager" else \
+            contextlib.nullcontext()
+        with ctx:
+            cs.reset_launches()
+            sums = [step(state, b) for b in batches]
+            torch.cuda.synchronize()
+            runs[mode] = (state, sums, cs.read_launches(),
+                          dict(step.graphs.stats))
+    (gs, gsum, gl, stats), (es, esum, el, _) = runs["graph"], runs["eager"]
+    assert stats == {"eager": 1, "captures": 1, "replays": 2}
+    assert cs.graph_states_equal(torch, gs, es)
+    assert cs.sums_equal(torch, gsum, esum)
+    assert gl == el and gl["zbuffer_min_depth_sorted"] == 3
