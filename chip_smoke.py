@@ -101,9 +101,13 @@ Phases, each printing one JSON line:
                  raster_backend values (Predictor.export_serving): bytes,
                  export and load seconds, the rdt.* nodes of each graph; one
                  call of each loaded artifact counted (84 B and 1 C, or 1 A)
-                 and equal to Predictor.predict; the sorted artifact loaded
-                 and checked again in a fresh process that imports only the
-                 port; img/s of the artifact beside Predictor.predict (ABBA)
+                 and equal to Predictor.predict; that call captured the
+                 artifact's CUDA graph, a third replays it: bit-equal to
+                 the eager module and, as it is, to predict, with one
+                 call's launches; the sorted artifact loaded and checked
+                 again in a fresh process that imports only the port (its
+                 graph too); img/s of the artifact beside
+                 Predictor.predict (ABBA)
   ops_api        the public ops (radar_depth_tpu_torch.ops): radar_to_depth_map
                  at B=8, 5 sweeps, 450x800 with both z-buffer backends, each
                  bit-equal to plain=True, counted (1 C or 1 A) and timed
@@ -134,7 +138,13 @@ Phases, each printing one JSON line:
                  and peak GiB; eager against graph B=32 train img/s on a
                  resident batch, host ms per step, peak and reserved GiB;
                  host us per device kernel of a replay, per path; each
-                 beside nvidia-smi's line
+                 beside nvidia-smi's line. Then, eager and graph in turns:
+                 Predictor.evaluate at B=8 through infer's graph (ms a
+                 call, metrics equal), the artifact of phase export (ms a
+                 call, maps bit-equal; its replay traced), make_eval_step
+                 at B=8 in bfloat16 and float32 (host ms a step, ms until
+                 the card finishes, peak GiB, sums bit-equal, launches; the
+                 bfloat16 replay traced)
   zoo            the rest of the registry at full width (bfloat16, B=8,
                  seeded random weights), each through Predictor with its
                  kernel B sites per forward checked against the module
@@ -176,8 +186,14 @@ Phases, each printing one JSON line:
                  bfloat16 if it fits); one float32 step of the kernel path
                  against the plain path on the card (TF32 off) and against the
                  CPU on a small input
-  eval           make_eval_step on B=8: launch counts, metric sums against
-                 the plain path
+  eval           make_eval_step on B=8: its replay (the third call) bit-equal
+                 to the step under disable_graphs, launches of both 84 B +
+                 1 C, metric sums against the plain path; the Trainer
+                 (bfloat16, B=8, 3 epochs, 20 val samples held in host
+                 memory: B=8, 8, 4) validating eagerly and on its graphs:
+                 peak and reserved GiB of each run, validate walls, the
+                 graphs' captures; validate and validate_splits eager and
+                 graph in turns, metrics equal
   profile_train  the same over one B=8 train step, float32 and bfloat16
   harness        the training harness at full width (flagship, bfloat16,
                  B=8, 450x800) on packed SyntheticNuScenes shards (48 train,
@@ -221,13 +237,15 @@ Phases, each printing one JSON line:
                  img/s of a warm pass
   profile_harness  device time and idle share over one harness train epoch
   data_parallel  the data-parallel path (parallel/mesh.py) with the flagship
-                 at full width: (a) a 1-rank NCCL group on card 0, 6 float32
-                 (TF32 off) and 6 bfloat16 B=8 train steps through the DP
-                 path bit-equal to the same steps without a group, and one
-                 eval step bit-equal too, launches counted (kernel C 1 per
-                 step; 84 B + 1 C per eval step), all-reduces per step, the
-                 ms of the flat gradient all-reduce, img/s of the DP path
-                 beside the plain step's; (b) two processes on card 0 over
+                 at full width: (a) a 1-rank NCCL group on card 0, 8 float32
+                 (TF32 off) and 8 bfloat16 B=8 train steps through the DP
+                 path on its CUDA graphs (the collectives captured)
+                 bit-equal to the same steps eager and without a group,
+                 all-reduces per step under replay as eager, and three eval
+                 steps bit-equal too, launches counted (kernel C 1 per
+                 step; 84 B + 1 C per eval step), the ms of the flat
+                 gradient all-reduce, img/s of the DP path (graph and
+                 eager) over the plain step's; (b) two processes on card 0 over
                  gloo (NCCL refuses two ranks on one device), 4 rows each
                  of B=8, one float32 train step against the 1-process B=8
                  step under phase train's gates, the ranks' parameters
@@ -2108,11 +2126,14 @@ for n in names:
     getattr(kernels, n).launches = 0
 got = serve(batch)
 launches = {n: getattr(kernels, n).launches for n in names}
+replayed = serve(batch)
 foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "radar_depth_tpu"))
 print(json.dumps({
     "launches": launches, "shape": list(got.shape),
     "bit_equal": bool(np.array_equal(got, want)),
+    "graph_stats": serve.graphs.stats,
+    "replay_bit_equal": bool(np.array_equal(replayed, got)),
     "rel_rmse": float(np.sqrt(np.mean((got - want) ** 2))
                       / np.sqrt(np.mean(want ** 2))),
     "foreign_modules": foreign}))
@@ -2132,8 +2153,43 @@ def abba(fns, reps=6):
     return times
 
 
+def export_graph(np, serve, b8, counted, want, want_launches):
+    """The artifact's graph (``load_serving``): its second call, counted
+    above (``counted``), captured; a third replays. The replay's map is
+    bit-equal to the capture call's, to the eager module's (the same
+    callable under ``disable_graphs``) and, as the eager module's is, to
+    ``predict``'s (``want``); the replay counts one call's launches."""
+    from radar_depth_tpu_torch import graphs
+
+    reset_launches()
+    replayed = serve(b8)
+    launches = read_launches()
+    stats = dict(serve.graphs.stats)
+    with graphs.disable_graphs():
+        eager = serve(b8)
+    out = {"stats": stats, "launches_replay": launches,
+           "replay_bit_equal_to_capture_call": bool(
+               np.array_equal(replayed, counted)),
+           "replay_bit_equal_to_eager_module": bool(
+               np.array_equal(replayed, eager)),
+           "replay_bit_equal_to_predict": bool(np.array_equal(replayed,
+                                                              want)),
+           "eager_module_bit_equal_to_predict": bool(
+               np.array_equal(eager, want))}
+    if (stats != {"eager": 1, "captures": 1, "replays": 2}
+            or launches != want_launches
+            or not out["replay_bit_equal_to_capture_call"]
+            or not out["replay_bit_equal_to_eager_module"]
+            or out["replay_bit_equal_to_predict"]
+            != out["eager_module_bit_equal_to_predict"]):
+        raise AssertionError(f"export, the artifact's graph: {out}")
+    return out
+
+
 def phase_export(torch, np, dev, batch, sd, pred):
-    """The flagship's serving artifact at B=8, both z-buffer backends."""
+    """The flagship's serving artifact at B=8, both z-buffer backends.
+    Returns the phase's record and the loaded sorted artifact's ``serve``
+    (its graph captured), for phase graphs."""
     import shutil
     import tempfile
 
@@ -2190,6 +2246,8 @@ def phase_export(torch, np, dev, batch, sd, pred):
                 r["rel_rmse_vs_predict"] = rel_rmse(np, got, want)
                 if r["rel_rmse_vs_predict"] > PARITY_REL_RMSE_TOL:
                     raise AssertionError(f"export {backend} vs predict: {r}")
+            r["graph"] = export_graph(np, serve, b8, got, want,
+                                      want_launches)
             out[backend] = r
             served[backend] = (serve, path, want)
 
@@ -2208,6 +2266,9 @@ def phase_export(torch, np, dev, batch, sd, pred):
         fresh = json.loads(proc.stdout.strip().splitlines()[-1])
         fresh["process_s"] = time.perf_counter() - t0
         if (fresh["launches"] != out["sorted"]["launches"]
+                or fresh["graph_stats"] != {"eager": 1, "captures": 1,
+                                            "replays": 2}
+                or not fresh["replay_bit_equal"]
                 or fresh["foreign_modules"]
                 or fresh["shape"] != [EXPORT_BATCH, H, W]
                 or not (fresh["bit_equal"]
@@ -2227,7 +2288,7 @@ def phase_export(torch, np, dev, batch, sd, pred):
     del preds
     torch.cuda.empty_cache()
     emit(out)
-    return out
+    return out, served["sorted"][0]
 
 
 
@@ -2419,7 +2480,8 @@ def replay_trace(torch, graphed, fn, want):
     capture's counts; no wrapper runs) and against ``want``, the launches
     of one eager call. Every symbol of a wrapper must appear as often as
     the counter says, so a count that graphs.py adds without the kernel in
-    the replay fails here. Also the replay's device kernels, all of them."""
+    the replay fails here. Also the replay's device kernels, all of them,
+    and those of NCCL among them (a graph over a process group)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2433,13 +2495,15 @@ def replay_trace(torch, graphed, fn, want):
         torch.cuda.synchronize()
     counted = read_launches()
     symbols = {sym: 0 for syms in KERNEL_SYMBOLS.values() for sym in syms}
-    device_kernels = 0
+    device_kernels = nccl = 0
     for e in prof.key_averages():
         if (e.device_type != DeviceType.CUDA
                 or getattr(e, "is_user_annotation", False)):
             continue
         if _category(e.key) != "memcpy":
             device_kernels += e.count
+        if "nccl" in e.key.lower():
+            nccl += e.count
         for sym in symbols:
             if sym in e.key:
                 symbols[sym] += e.count
@@ -2447,7 +2511,8 @@ def replay_trace(torch, graphed, fn, want):
               for k, syms in KERNEL_SYMBOLS.items()}
     stats = {k: graphed.stats[k] - before[k] for k in before}
     out = {"counted": counted, "traced": traced, "symbols": symbols,
-           "device_kernels": device_kernels, "stats": stats}
+           "device_kernels": device_kernels, "nccl_device_events": nccl,
+           "stats": stats}
     one = {KERNELS[k]: want.get(KERNELS[k], 0) for k in KERNEL_SYMBOLS}
     if (stats != {"eager": 0, "captures": 0, "replays": 1}
             or traced != one
@@ -2456,6 +2521,49 @@ def replay_trace(torch, graphed, fn, want):
                    for k, syms in KERNEL_SYMBOLS.items())):
         raise AssertionError(f"graphs, traced replay: {out}, want {one}")
     return out
+
+
+def in_turns(torch, fns, setting, reps=GRAPH_REPS):
+    """Each of ``fns`` (mode -> call) ``reps`` times, the modes in turns,
+    the order reversed every round, each call under ``setting(mode)`` after
+    a synchronise: per mode the host ms to return and the ms until the card
+    has finished, the peak GiB allocated over the call, and each call's
+    result."""
+    modes = list(fns)
+    host, done, peak, results = ({m: [] for m in modes} for _ in range(4))
+    for r in range(reps):
+        for mode in (modes if r % 2 == 0 else modes[::-1]):
+            with setting(mode):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                res = fns[mode]()
+                host[mode].append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                done[mode].append((time.perf_counter() - t0) * 1e3)
+                peak[mode].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+                results[mode].append(res)
+    return host, done, peak, results
+
+
+def graph_or_eager(mode):
+    from radar_depth_tpu_torch import graphs
+
+    return (graphs.disable_graphs() if mode == "eager"
+            else contextlib.nullcontext())
+
+
+def replay_host_ms(torch, fn, reps=GRAPH_REPS) -> float:
+    """Median host ms of ``fn`` (a replay, its inputs on the card), the card
+    idle before each call."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def graph_serve_timing(torch, np, pred, batch, smi):
@@ -2471,11 +2579,7 @@ def graph_serve_timing(torch, np, pred, batch, smi):
     from radar_depth_tpu_torch.ops.preprocess import to_device
 
     modes = ("eager", "graph")
-
-    def setting(mode):
-        return graphs.disable_graphs() if mode == "eager" else (
-            contextlib.nullcontext())
-
+    setting = graph_or_eager
     for mode in modes:  # both paths warm: the graph captured
         with setting(mode):
             pred.infer(batch).cpu(), pred.infer(batch).cpu()
@@ -2500,13 +2604,7 @@ def graph_serve_timing(torch, np, pred, batch, smi):
     trace = replay_trace(torch, pred.graphs, lambda: pred.infer(resident),
                          {KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD,
                           KERNELS["C"]: 1})
-    replay_ms = []
-    for _ in range(GRAPH_REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pred.infer(resident)
-        replay_ms.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
+    replay_ms = replay_host_ms(torch, lambda: pred.infer(resident))
     med = statistics.median
     return {
         "nvidia_smi": smi, "batch": B_SERVE, "dtype": "bfloat16",
@@ -2515,10 +2613,10 @@ def graph_serve_timing(torch, np, pred, batch, smi):
         "e2e_ms": {m: med(v) for m, v in e2e.items()}, "e2e_ms_all": e2e,
         "peak_gib": {m: max(v) for m, v in peak.items()},
         "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
-        "replay_host_ms_resident": med(replay_ms),
+        "replay_host_ms_resident": replay_ms,
         "device_kernels_per_forward_eager": eager_prof["device_kernels"],
         "replay_traced": trace,
-        "replay_host_us_per_device_kernel": med(replay_ms) * 1e3
+        "replay_host_us_per_device_kernel": replay_ms * 1e3
         / trace["device_kernels"],
         "device_busy_ms": {"eager": eager_prof["device_busy_ms"],
                            "graph": graph_prof["device_busy_ms"]},
@@ -2685,6 +2783,120 @@ def graph_generator(torch, dev, batch8):
     return out
 
 
+def graph_eval_steps(torch, np, dev, sd, smi, batch):
+    """``make_eval_step`` (the Trainer's validation, ``validate_splits``
+    and ``--evaluate``) on the flagship at B=8, bf16 and float32, the batch
+    on the card, eager and graph in turns (GRAPH_REPS rounds): host ms a
+    step, ms until the card finishes, peak GiB, every step's sums bit-equal
+    across modes and rounds, the launches of a replay as one eager call's;
+    a traced replay of the bf16 step and its host us per device kernel."""
+    from radar_depth_tpu_torch.config import ServeConfig
+    from radar_depth_tpu_torch.inference import Predictor
+    from radar_depth_tpu_torch.ops.preprocess import to_device
+    from radar_depth_tpu_torch.train.step import make_eval_step
+
+    resident = to_device(batch, dev)
+    want = {KERNELS["A"]: 0, KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD,
+            KERNELS["C"]: 1}
+    out = {"nvidia_smi": smi, "batch": B_SERVE}
+    for dtype in ("bfloat16", "float32"):
+        # the served model of that dtype, with phase graphs' weights
+        served = Predictor(ServeConfig(
+            arch="resnet18_multistage", decoder="upproj", height=H, width=W,
+            num_sweeps=5, dtype=dtype), sd, device=dev)
+        step = make_eval_step(served.model, served.arch_spec,
+                              train_config(dtype))
+        with graph_or_eager("eager"):
+            first = step(resident)
+        step(resident), step(resident)  # eager, then captured
+        counted = {}
+        for mode in ("eager", "graph"):
+            with graph_or_eager(mode):
+                reset_launches()
+                step(resident)
+                torch.cuda.synchronize()
+                counted[mode] = read_launches()
+        host, done, peak, results = in_turns(
+            torch, {"eager": lambda: step(resident),
+                    "graph": lambda: step(resident)}, graph_or_eager)
+        r = {"host_ms": {m: statistics.median(v) for m, v in host.items()},
+             "host_ms_all": host,
+             "ms": {m: statistics.median(v) for m, v in done.items()},
+             "ms_all": done,
+             "peak_gib": {m: max(v) for m, v in peak.items()},
+             "launches": counted,
+             "sums_bit_equal": all(sums_equal(torch, v, [first] * len(v))
+                                   for v in results.values()),
+             "stats": dict(step.graphs.stats)}
+        if (not r["sums_bit_equal"] or counted["graph"] != want
+                or counted["eager"] != want
+                or r["stats"]["captures"] != 1):
+            raise AssertionError(f"graphs, eval step {dtype}: {r}")
+        if dtype == "bfloat16":
+            r["replay_traced"] = replay_trace(
+                torch, step.graphs, lambda: step(resident), want)
+            r["replay_host_ms"] = replay_host_ms(torch,
+                                                 lambda: step(resident))
+            r["replay_host_us_per_device_kernel"] = (
+                r["replay_host_ms"] * 1e3
+                / r["replay_traced"]["device_kernels"])
+        out[dtype] = r
+        del step, served, results
+        torch.cuda.empty_cache()
+    return out
+
+
+def graph_evaluate(torch, np, pred, batch):
+    """``Predictor.evaluate`` at B=8 through ``infer``'s graph of that
+    shape (already captured by phase graphs' predict calls, so it replays
+    at once), eager and graph in turns: ms a call (upload, forward, metric
+    sums, their fetch), metrics equal every call."""
+    before = dict(pred.graphs.stats)
+    host, _, _, results = in_turns(
+        torch, {"eager": lambda: pred.evaluate(batch),
+                "graph": lambda: pred.evaluate(batch)}, graph_or_eager)
+    stats = {k: pred.graphs.stats[k] - before[k] for k in before}
+    first = results["eager"][0]
+    out = {"ms": {m: statistics.median(v) for m, v in host.items()},
+           "ms_all": host,
+           "metrics_equal": all(x == first for v in results.values()
+                                for x in v),
+           "stats": stats, "rmse": first["rmse"]}
+    if not out["metrics_equal"] or stats != {"eager": GRAPH_REPS,
+                                             "captures": 0,
+                                             "replays": GRAPH_REPS}:
+        raise AssertionError(f"graphs, Predictor.evaluate: {out}")
+    return out
+
+
+def graph_artifact(torch, np, dev, serve, batch):
+    """The loaded artifact's ``serve`` at B=8 (phase export captured its
+    graph), eager module and graph in turns: ms a call (upload, program,
+    fetch), the maps bit-equal every call; a traced replay of its graph on
+    the batch on the card and its host us per device kernel."""
+    from radar_depth_tpu_torch.ops.preprocess import to_device
+
+    host, _, _, results = in_turns(
+        torch, {"eager": lambda: serve(batch), "graph": lambda: serve(batch)},
+        graph_or_eager)
+    first = results["eager"][0]
+    resident = to_device(batch, dev)
+    out = {"ms": {m: statistics.median(v) for m, v in host.items()},
+           "ms_all": host,
+           "maps_bit_equal": all(np.array_equal(x, first)
+                                 for v in results.values() for x in v),
+           "replay_traced": replay_trace(
+               torch, serve.graphs, lambda: serve.graphs(resident),
+               {KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD, KERNELS["C"]: 1})}
+    out["replay_host_ms"] = replay_host_ms(torch,
+                                           lambda: serve.graphs(resident))
+    out["replay_host_us_per_device_kernel"] = (
+        out["replay_host_ms"] * 1e3 / out["replay_traced"]["device_kernels"])
+    if not out["maps_bit_equal"]:
+        raise AssertionError(f"graphs, artifact: {out}")
+    return out
+
+
 def graphs_summary(kernels, graphs_out):
     """Phase graphs' numbers in each kernel's entry of the summary line:
     its launches over the five served calls and the five train steps on
@@ -2692,7 +2904,9 @@ def graphs_summary(kernels, graphs_out):
     host us per device kernel of a replay, given to the kernels that run on
     that path."""
     replays = {"serve_bfloat16_b8": graphs_out["serve_timing"],
-               "train_bfloat16_b32": graphs_out["training"]["timing"]}
+               "train_bfloat16_b32": graphs_out["training"]["timing"],
+               "eval_step_bfloat16_b8": graphs_out["eval_steps"]["bfloat16"],
+               "artifact_bfloat16_b8": graphs_out["artifact"]}
     for k in kernels:
         k["launches_graphs"] = {
             "serve_bfloat16_b8_5_calls": graphs_out["serving"]["bfloat16"][
@@ -2708,8 +2922,10 @@ def graphs_summary(kernels, graphs_out):
             if r["replay_traced"]["traced"][k["name"]]}
 
 
-def phase_graphs(torch, np, dev, sd, smi):
-    """The served forward and the train step on their per-shape CUDA graphs
+def phase_graphs(torch, np, dev, sd, smi, artifact):
+    """The served forward, the train step, the eval step,
+    ``Predictor.evaluate`` and the artifact (``artifact``: phase export's
+    loaded ``serve``, its graph captured) on their per-shape CUDA graphs
     (graphs.py) against the eager path (module docstring)."""
     from radar_depth_tpu_torch import bench
     from radar_depth_tpu_torch.data import SampleSpec
@@ -2726,8 +2942,12 @@ def phase_graphs(torch, np, dev, sd, smi):
             out["hooks"] = graph_hooks(torch, graphed, batches[0])
             out["serve_timing"] = graph_serve_timing(torch, np, graphed,
                                                      batches[0], smi)
+            out["evaluate"] = graph_evaluate(torch, np, graphed, batches[0])
         del graphed, eager
     out["serving"] = serving
+    torch.cuda.empty_cache()
+    out["artifact"] = graph_artifact(torch, np, dev, artifact, batches[0])
+    out["eval_steps"] = graph_eval_steps(torch, np, dev, sd, smi, batches[0])
     torch.cuda.empty_cache()
     batch32 = bench.synthetic_batch(spec, GRAPH_TRAIN_B, 0)
     out["training"] = graph_training(torch, dev, batch32, smi)
@@ -2971,23 +3191,225 @@ def phase_train(torch, np, dev, batch):
     return out, launches, trained
 
 
-def phase_eval(torch, np, dev, batch, trained):
+EVAL_RUN_EPOCHS = 3  # of the Trainer runs in phase eval
+EVAL_RUN_TRAIN, EVAL_RUN_VAL = 16, 20  # samples: 2 steps, val B=8, 8, 4
+EVAL_RUN_TURNS = 4  # rounds of validate, eager and graph in turns
+TIMING = ("data_time", "gpu_time")
+
+
+class HeldDataset:
+    """A split of ``SyntheticNuScenes`` generated once and held in host
+    memory, so that a pass reads its batches as from a warm packed shard,
+    not at the generator's ~150 ms a full-size sample."""
+
+    def __init__(self, np, ds):
+        self.np = np
+        self.arrays = ds.batch(range(len(ds)))
+        self.tags = [ds.sample_tag(i) for i in range(len(ds))]
+
+    def __len__(self):
+        return len(self.tags)
+
+    def batch(self, indices):
+        idx = self.np.asarray(list(indices))
+        return {k: v[idx] for k, v in self.arrays.items()}
+
+    def sample_tag(self, i):
+        return self.tags[i]
+
+
+def without_timing(metrics):
+    return {k: v for k, v in metrics.items() if k not in TIMING}
+
+
+def eval_trainer_runs(torch, np, dev, smi):
+    """The Trainer (flagship, bf16, B=8, 450x800, synthetic samples held in
+    host memory) for EVAL_RUN_EPOCHS epochs of training and validation
+    (20 samples: B=8, 8 and a ragged 4; a panel row per val batch), twice:
+    ``before`` validates eagerly (``disable_graphs`` around ``validate``,
+    the parent's path), ``after`` on the eval and panel graphs. Per run:
+    peak GiB allocated over the run (less what was allocated before it),
+    GiB reserved at its end (the graphs' pools held), validate walls per
+    epoch and the graphs' stats. Then, on the ``after`` Trainer,
+    EVAL_RUN_TURNS rounds of ``validate`` eager and graph in turns, and
+    ``validate_splits`` of each: metrics equal, walls."""
+    import gc
+    import shutil
+    import tempfile
+
+    from radar_depth_tpu_torch.train.loop import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="rdt-eval-")
+    cfg = train_config("bfloat16", num_train=EVAL_RUN_TRAIN,
+                       num_val=EVAL_RUN_VAL)
+    cfg = dataclasses.replace(cfg, eval_batch_size=B_TRAIN, val_viz_every=1,
+                              epochs=EVAL_RUN_EPOCHS, print_freq=1000)
+    held = None
+    out = {"nvidia_smi": smi, "epochs": EVAL_RUN_EPOCHS,
+           "val_samples": EVAL_RUN_VAL, "eval_batch": B_TRAIN}
+    try:
+        for mode in ("before", "after"):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() / 2 ** 30
+            base_reserved = torch.cuda.memory_reserved() / 2 ** 30
+            trainer = Trainer(dataclasses.replace(
+                cfg, output_dir=os.path.join(tmp, mode)))
+            if held is None:
+                held = (HeldDataset(np, trainer.train_ds),
+                        HeldDataset(np, trainer.val_ds))
+            trainer.train_ds, trainer.val_ds = held
+            walls, metrics = [], []
+            try:
+                for epoch in range(EVAL_RUN_EPOCHS):
+                    trainer.train_epoch(epoch)
+                    with graph_or_eager("eager" if mode == "before"
+                                        else "graph"):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        metrics.append(trainer.validate(epoch))
+                        walls.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                r = {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
+                     - base,
+                     "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30
+                     - base_reserved,
+                     "validate_s": walls,
+                     "val_metrics": [without_timing(m) for m in metrics],
+                     "eval_graphs": dict(trainer._eval_step.graphs.stats),
+                     "eval_keys": len(trainer._eval_step.graphs._graphs),
+                     "panel_graphs": dict(trainer._predict.graphs.stats),
+                     "train_graphs": dict(trainer._train_step.graphs.stats)}
+                if mode == "after":
+                    r["turns"] = validate_in_turns(trainer)
+            finally:
+                trainer.close()
+            out[mode] = r
+            del trainer
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = out["after"]
+    if (after["eval_graphs"]["captures"] != 2 or after["eval_keys"] != 2
+            or after["panel_graphs"]["captures"] != 1
+            or out["before"]["eval_graphs"]["captures"]):
+        raise AssertionError(f"eval, the Trainer's graphs: {out}")
+    return out
+
+
+def validate_in_turns(trainer):
+    """EVAL_RUN_TURNS rounds of ``validate`` (no panel), eager and graph
+    in turns, then ``validate_splits`` of each: walls, and every round's
+    metrics (and each split's) equal."""
+    walls = {"eager": [], "graph": []}
+    metrics = []
+    for r in range(EVAL_RUN_TURNS):
+        for mode in (("eager", "graph") if r % 2 == 0 else ("graph",
+                                                             "eager")):
+            with graph_or_eager(mode):
+                t0 = time.perf_counter()
+                metrics.append(without_timing(trainer.validate(viz=False)))
+                walls[mode].append(time.perf_counter() - t0)
+    splits = {}
+    for mode in ("eager", "graph"):
+        with graph_or_eager(mode):
+            splits[mode] = {k: without_timing(v) for k, v in
+                            trainer.validate_splits().items()}
+    out = {"validate_s": {m: statistics.median(v) for m, v in walls.items()},
+           "validate_s_all": walls,
+           "metrics_equal": all(m == metrics[0] for m in metrics),
+           "splits": sorted(splits["graph"]),
+           "splits_equal": splits["graph"] == splits["eager"]}
+    if not (out["metrics_equal"] and out["splits_equal"]
+            and len(splits["graph"]) == 2):
+        raise AssertionError(f"eval, validate graph vs eager: {out}")
+    return out
+
+
+def eval_sparsified(torch, dev, batch):
+    """The eval step under ``--sparsifier uar`` (the zoo's resnet18 rgbd
+    entry, float32, full width, B=8), four calls: eager, then three
+    replays (the first right after the capture). The step seeds its
+    generator again before each call, so every replay draws the fixed
+    uniforms: its sums bit-equal to the first call's and to the same
+    step's under ``disable_graphs``, launches as eager."""
+    from radar_depth_tpu_torch import graphs
+    from radar_depth_tpu_torch.train.loop import build_model
+    from radar_depth_tpu_torch.train.step import make_eval_step
+
+    entry = next(e for e in ZOO_TRAIN if e.get("sparsifier") == "uar")
+    cfg = zoo_config(entry, "float32")
+    model, spec = build_model(cfg, dev)
+    train_init(torch, model, 0)
+    step = make_eval_step(model, spec, cfg)
+    b8 = with_sweeps(batch, B_TRAIN, entry["sweeps"])
+    sums = [step(b8) for _ in range(3)]
+    reset_launches()
+    sums.append(step(b8))
+    launches = read_launches()
+    stats = dict(step.graphs.stats)
+    reset_launches()
+    with graphs.disable_graphs():
+        eager = step(b8)
+    launches_eager = read_launches()
+    out = {"arch": entry["arch"], "sparsifier": "uar", "graph_stats": stats,
+           "launches": launches, "launches_eager": launches_eager,
+           "replays_bit_equal_to_first_call": sums_equal(
+               torch, sums[1:], sums[:1] * 3),
+           "replays_bit_equal_to_eager": sums_equal(torch, sums[1:],
+                                                    [eager] * 3),
+           "sums": {k: float(v) for k, v in sums[-1].items()}}
+    if (stats != {"eager": 1, "captures": 1, "replays": 3}
+            or launches != launches_eager
+            or not launches_eager.get(KERNELS["B"])
+            or not out["replays_bit_equal_to_first_call"]
+            or not out["replays_bit_equal_to_eager"]
+            or not all(math.isfinite(v) for v in out["sums"].values())):
+        raise AssertionError(f"eval, the sparsified eval step's graph: {out}")
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_eval(torch, np, dev, batch, trained, smi):
+    """The eval step on its graph (captured at its second call) against the
+    same step eager and ``plain=True``, launches of a replay as eager; the
+    eval step under a sparsifier on its graph (``eval_sparsified``); the
+    Trainer's validation on its graphs against eager (``eval_trainer_runs``).
+    """
+    from radar_depth_tpu_torch import graphs
     from radar_depth_tpu_torch.train.step import make_eval_step
 
     model, spec, _, _ = trained["float32"]
     cfg = train_config("float32")
     b8 = {k: v[:B_TRAIN] for k, v in batch.items()}
     eval_step = make_eval_step(model, spec, cfg)
-    eval_step(b8)  # warm-up
+    eval_step(b8)  # warm-up: eager
+    eval_step(b8)  # captured
     reset_launches()
-    got = eval_step(b8)
+    got = eval_step(b8)  # a replay
     torch.cuda.synchronize()
     launches = read_launches()
+    stats = dict(eval_step.graphs.stats)
+    reset_launches()
+    with graphs.disable_graphs():
+        eager = eval_step(b8)
+    torch.cuda.synchronize()
+    launches_eager = read_launches()
     want = make_eval_step(model, spec, cfg, plain=True)(b8)
     expect = {KERNELS["A"]: 0, KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD,
               KERNELS["C"]: 1}
-    if launches != expect:
-        raise AssertionError(f"eval launches {launches}, expected {expect}")
+    if launches != expect or launches_eager != expect:
+        raise AssertionError(f"eval launches {launches} (replay), "
+                             f"{launches_eager} (eager), expected {expect}")
+    if stats != {"eager": 1, "captures": 1, "replays": 2}:
+        raise AssertionError(f"eval step graphs {stats}")
+    graph_eager = sums_equal(torch, [got], [eager])
+    if not graph_eager:
+        raise AssertionError("the eval step's replay differs from eager")
     got = {k: float(v) for k, v in got.items()}
     want = {k: float(v) for k, v in want.items()}
     if not all(math.isfinite(v) for v in got.values()):
@@ -2995,8 +3417,12 @@ def phase_eval(torch, np, dev, batch, trained):
     err = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in want)
     if err > SUMS_RTOL:
         raise AssertionError(f"eval sums differ from the plain path by {err}")
-    out = {"phase": "eval", "launches": launches, "sums": got,
-           "plain_sums_max_rel": err, "bit_equal": got == want}
+    out = {"phase": "eval", "launches": launches,
+           "launches_eager": launches_eager, "graph_stats": stats,
+           "sums": got, "plain_sums_max_rel": err, "bit_equal": got == want,
+           "replay_bit_equal_to_eager": graph_eager}
+    out["sparsifier_uar"] = eval_sparsified(torch, dev, batch)
+    out["trainer"] = eval_trainer_runs(torch, np, dev, smi)
     emit(out)
     return out
 
@@ -4204,7 +4630,8 @@ def phase_eval_two_stage(torch, np, dev, tmp, sd):
 
 # ------------------------------------------------------ data parallelism
 
-DP_STEPS = 6  # steps of each path in (a); img/s is the median after the first
+DP_STEPS = 8  # steps of each path in (a); img/s: the median after the
+# first two (call 1 at the key runs eagerly, call 2 captures)
 DP_TIMEOUT_S = 600  # each process that phase data_parallel starts
 DP_BACKEND = "nccl"  # of (a) and (c): one rank on the card
 
@@ -4344,26 +4771,78 @@ def dp_worker(root) -> int:
 def dp_steps(torch, dev, cfg, sd, batch, mesh):
     """DP_STEPS train steps from ``sd`` on ``batch``, each drawing from a
     generator seeded 10 + i, through the DP path on ``mesh`` (None: the
-    plain step), counted. Returns model, per-step sums and seconds,
-    launches, collectives."""
+    plain step), counted; on their graphs unless ``disable_graphs`` is on.
+    Returns model, per-step sums and seconds, launches, collectives (in
+    all and per step), the graphs' stats, and the step, its state and its
+    generator (for a traced replay)."""
     from radar_depth_tpu_torch.parallel import mesh as pm
     from radar_depth_tpu_torch.train.step import make_train_step
 
     model, spec, state, _ = train_setup(torch, cfg, dev, state_dict=sd)
     step = make_train_step(model, spec, cfg, mesh=mesh)
     gen = torch.Generator(device=dev)
-    sums, times = [], []
+    sums, times, per_step = [], [], []
     torch.cuda.synchronize()
     reset_launches()
     pm.COLLECTIVES.clear()
     for i in range(DP_STEPS):
         gen.manual_seed(10 + i)
+        before = dict(pm.COLLECTIVES)
         t0 = time.perf_counter()
         sums.append({k: float(v) for k, v in step(state, batch,
                                                   generator=gen).items()})
         times.append(time.perf_counter() - t0)
+        per_step.append({k: n - before.get(k, 0)
+                         for k, n in pm.COLLECTIVES.items()})
     return {"model": model, "spec": spec, "sums": sums, "times": times,
-            "launches": read_launches(), "collectives": dict(pm.COLLECTIVES)}
+            "launches": read_launches(), "collectives": dict(pm.COLLECTIVES),
+            "collectives_per_step": per_step,
+            "stats": dict(step.graphs.stats),
+            "step": step, "state": state, "generator": gen}
+
+
+def dp_img_per_s(run) -> float:
+    """B_TRAIN over the median step seconds after the first two."""
+    return B_TRAIN / statistics.median(run["times"][2:])
+
+
+def dp_eval(torch, model, spec, cfg, batch, mesh):
+    """Three eval steps (eager, captured, replayed on the card) through
+    ``mesh`` (None: the single-process step): the last call's sums,
+    launches and collectives per call, and the step."""
+    from radar_depth_tpu_torch.parallel import mesh as pm
+    from radar_depth_tpu_torch.train.step import make_eval_step
+
+    step = make_eval_step(model, spec, cfg, mesh=mesh)
+    launches, collectives = [], []
+    for _ in range(3):
+        reset_launches()
+        pm.COLLECTIVES.clear()
+        sums = {k: float(v) for k, v in step(batch).items()}
+        launches.append(read_launches())
+        collectives.append(dict(pm.COLLECTIVES))
+    return {"sums": sums, "launches": launches, "collectives": collectives,
+            "stats": dict(step.graphs.stats), "step": step}
+
+
+def dp_replay_trace(torch, graphed, fn, want, per_call, what):
+    """``replay_trace`` of a graph over the 1-rank NCCL group: a wrapper's
+    launches that graphs.py adds on a replay must be device kernels of the
+    replay, and the collectives it adds (over the warm replay and the
+    traced one) two calls' worth of what an eager call issues
+    (``per_call``)."""
+    from radar_depth_tpu_torch.parallel import mesh as pm
+
+    before = dict(pm.COLLECTIVES)
+    out = replay_trace(torch, graphed, fn, want)
+    out["collectives"] = {k: n - before.get(k, 0)
+                          for k, n in pm.COLLECTIVES.items()
+                          if n != before.get(k, 0)}
+    if out["collectives"] != {k: 2 * n for k, n in per_call.items() if n}:
+        raise AssertionError(f"data_parallel, traced {what} replay: "
+                             f"collectives {out['collectives']}, an eager "
+                             f"call {per_call}")
+    return out
 
 
 def states_equal(torch, a, b) -> bool:
@@ -4376,6 +4855,7 @@ def phase_data_parallel(torch, np, dev, batch, tmp):
     """The DP path (parallel/mesh.py) on the card: (a) a 1-rank NCCL group,
     (b) two gloo processes on card 0, (c) torchrun with one NCCL rank
     through train.main."""
+    from radar_depth_tpu_torch import graphs
     from radar_depth_tpu_torch.parallel import mesh as pm
     from radar_depth_tpu_torch.train.step import make_eval_step
 
@@ -4384,72 +4864,116 @@ def phase_data_parallel(torch, np, dev, batch, tmp):
                                        "cpu")[0], 5).state_dict()
     out = {"phase": "data_parallel", "batch": B_TRAIN, "steps": DP_STEPS}
 
-    # (a) a 1-rank NCCL group: the DP path bit-equal to the plain step
+    # (a) a 1-rank NCCL group: the DP path on its graphs bit-equal to the
+    # DP path eager and to the plain step (on its graphs)
     mesh = mesh_from_env(free_ports()[0])
     if (mesh.backend, mesh.world, mesh.device) != (DP_BACKEND, 1, dev):
         raise AssertionError(f"data_parallel mesh {mesh}")
-    a, dp_launches = {}, {}
+    a, dp_launches, traced = {}, {}, {}
+    want_stats = {"eager": 1, "captures": 1, "replays": DP_STEPS - 1}
     try:
         with deterministic_cudnn(torch):
             for dtype in ("float32", "bfloat16"):
                 cfg = train_config(dtype)
                 plain = dp_steps(torch, dev, cfg, sd, b8, None)
                 dp = dp_steps(torch, dev, cfg, sd, b8, mesh)
+                with graphs.disable_graphs():
+                    dp_eager = dp_steps(torch, dev, cfg, sd, b8, mesh)
                 want = {KERNELS["A"]: 0, KERNELS["B"]: 0,
                         KERNELS["C"]: DP_STEPS,
                         **bn_train_launches(FLAGSHIP_TRAIN_SITES, DP_STEPS)}
-                if plain["launches"] != want or dp["launches"] != want:
+                runs = {"plain": plain, "dp": dp, "dp_eager": dp_eager}
+                if any(r["launches"] != want for r in runs.values()):
                     raise AssertionError(
-                        f"data_parallel {dtype} launches {plain['launches']}"
-                        f" / {dp['launches']}, expected {want}")
-                if plain["collectives"] or set(dp["collectives"]) != {
-                        "all_reduce"}:
-                    raise AssertionError(f"collectives {plain['collectives']}"
-                                         f" / {dp['collectives']}")
-                bit_equal = (plain["sums"] == dp["sums"]
-                             and states_equal(torch, plain["model"],
-                                              dp["model"]))
+                        f"data_parallel {dtype} launches "
+                        f"{ {k: r['launches'] for k, r in runs.items()} }, "
+                        f"expected {want}")
+                if (plain["collectives"]
+                        or set(dp["collectives"]) != {"all_reduce"}
+                        or dp["collectives_per_step"]
+                        != dp_eager["collectives_per_step"]
+                        or any(c != dp["collectives_per_step"][0]
+                               for c in dp["collectives_per_step"])):
+                    raise AssertionError(
+                        f"collectives {plain['collectives']} / "
+                        f"{dp['collectives_per_step']} / "
+                        f"{dp_eager['collectives_per_step']}")
+                if (plain["stats"] != want_stats or dp["stats"] != want_stats
+                        or dp_eager["stats"]["replays"]):
+                    raise AssertionError(f"data_parallel {dtype} graphs "
+                                         f"{plain['stats']} / {dp['stats']}"
+                                         f" / {dp_eager['stats']}")
+                bit_equal = all(
+                    r["sums"] == dp["sums"]
+                    and states_equal(torch, r["model"], dp["model"])
+                    for r in (plain, dp_eager))
                 if not bit_equal:
                     raise AssertionError(f"data_parallel {dtype}: the 1-rank "
-                                         "group's steps differ from the plain"
-                                         " steps")
+                                         "group's steps on their graphs "
+                                         "differ from the eager DP steps or "
+                                         "the plain steps")
                 dp_launches = sum_launches(dp_launches, dp["launches"])
+                rates = {k: dp_img_per_s(r) for k, r in runs.items()}
+                if dtype == "bfloat16":  # the counts above held to a trace
+                    traced["train_bfloat16_b8"] = dp_replay_trace(
+                        torch, dp["step"].graphs,
+                        lambda: dp["step"](dp["state"], b8,
+                                           generator=dp["generator"]),
+                        bn_train_launches(FLAGSHIP_TRAIN_SITES, 1)
+                        | {KERNELS["C"]: 1},
+                        dp_eager["collectives_per_step"][-1], "train step")
                 a[dtype] = {
                     "bit_equal": bit_equal,
                     "losses": [x["loss"] for x in dp["sums"]],
                     "collectives_per_step":
                         dp["collectives"]["all_reduce"] / DP_STEPS,
-                    "img_per_s_dp": B_TRAIN / statistics.median(
-                        dp["times"][1:]),
-                    "img_per_s_plain": B_TRAIN / statistics.median(
-                        plain["times"][1:]),
-                    "step_ms_dp": [t * 1e3 for t in dp["times"]],
-                    "step_ms_plain": [t * 1e3 for t in plain["times"]]}
-            # one eval step through the group, beside the plain eval step
+                    "collectives_per_step_replay_vs_eager": [
+                        dp["collectives_per_step"][-1],
+                        dp_eager["collectives_per_step"][-1]],
+                    "graph_stats": dp["stats"],
+                    "img_per_s_dp": rates["dp"],
+                    "img_per_s_dp_eager": rates["dp_eager"],
+                    "img_per_s_plain": rates["plain"],
+                    "dp_over_plain": rates["dp"] / rates["plain"],
+                    "dp_eager_over_plain": rates["dp_eager"]
+                    / rates["plain"],
+                    **{f"step_ms_{k}": [t * 1e3 for t in r["times"]]
+                       for k, r in runs.items()}}
+                del runs, plain, dp_eager
+            # eval steps through the group (eager, captured, replayed),
+            # beside the plain eval step's and the group's eager ones
             model, spec = dp["model"], dp["spec"]
             cfg = train_config("bfloat16")
-            want_ev = make_eval_step(model, spec, cfg)(b8)
-            reset_launches()
-            pm.COLLECTIVES.clear()
-            got_ev = make_eval_step(model, spec, cfg, mesh=mesh)(b8)
-            ev_launches = read_launches()
+            want_ev = dp_eval(torch, model, spec, cfg, b8, None)
+            got_ev = dp_eval(torch, model, spec, cfg, b8, mesh)
+            with graphs.disable_graphs():
+                eager_ev = dp_eval(torch, model, spec, cfg, b8, mesh)
             expect = {KERNELS["A"]: 0, KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD,
                       KERNELS["C"]: 1}
-            if ev_launches != expect or {k: float(v) for k, v in
-                                         got_ev.items()} != {
-                    k: float(v) for k, v in want_ev.items()}:
-                raise AssertionError(f"data_parallel eval: launches "
-                                     f"{ev_launches}, sums {got_ev} vs "
-                                     f"{want_ev}")
+            if (any(n != expect for r in (want_ev, got_ev, eager_ev)
+                    for n in r["launches"])
+                    or got_ev["sums"] != want_ev["sums"]
+                    or eager_ev["sums"] != want_ev["sums"]
+                    or got_ev["collectives"] != eager_ev["collectives"]
+                    or got_ev["stats"] != {"eager": 1, "captures": 1,
+                                           "replays": 2}):
+                raise AssertionError(f"data_parallel eval: {got_ev} vs "
+                                     f"{want_ev}, eager {eager_ev}")
+            ev_launches = got_ev["launches"][-1]
             dp_launches = sum_launches(dp_launches, ev_launches)
+            traced["eval_bfloat16_b8"] = dp_replay_trace(
+                torch, got_ev["step"].graphs, lambda: got_ev["step"](b8),
+                expect, eager_ev["collectives"][-1], "eval step")
+            a["replay_traced"] = traced
             a["eval"] = {"launches": ev_launches, "bit_equal": True,
-                         "collectives": dict(pm.COLLECTIVES)}
+                         "collectives": got_ev["collectives"][-1],
+                         "graph_stats": got_ev["stats"]}
             grads = [torch.ones_like(p) for p in model.parameters()]
             a["grad_all_reduce"] = {
                 "tensors": len(grads),
                 "bytes": sum(g.numel() * g.element_size() for g in grads),
                 "ms": cuda_ms(torch, lambda: pm.all_reduce_sum(grads, mesh))}
-            del model, grads, plain, dp
+            del model, grads, dp, got_ev, traced
     finally:
         pm.destroy_mesh(mesh)
     torch.cuda.empty_cache()
@@ -5163,11 +5687,12 @@ def main(argv=None) -> int:
     lap("serve_http")
     bench_out = phase_bench(torch, np, dev, smi)
     lap("bench")
-    export = phase_export(torch, np, dev, batch, sd, pred)
+    export, artifact = phase_export(torch, np, dev, batch, sd, pred)
     lap("export")
     ops_api = phase_ops_api(torch, np, dev, batch, pred)
     lap("ops_api")
-    graphs_out = phase_graphs(torch, np, dev, sd, smi)
+    graphs_out = phase_graphs(torch, np, dev, sd, smi, artifact)
+    del artifact
     lap("graphs")
     del pred
     torch.cuda.empty_cache()
@@ -5179,7 +5704,7 @@ def main(argv=None) -> int:
     lap("epilogue")
     train, train_launches, trained = phase_train(torch, np, dev, batch)
     lap("train")
-    ev = phase_eval(torch, np, dev, batch, trained)
+    ev = phase_eval(torch, np, dev, batch, trained, smi)
     lap("eval")
     prof_train = phase_profile_train(torch, dev, trained, batch)
     lap("profile_train")
@@ -5325,6 +5850,10 @@ def main(argv=None) -> int:
         *bn_train_summary(bnt, train_launches, harness, dp, bench_out),
     ]}
     graphs_summary(summary["kernels"], graphs_out)
+    for k in summary["kernels"]:  # the DP graphs' traced replays
+        k["launches_graph_replay_traced"].update({
+            f"data_parallel_{path}": r["traced"][k["name"]] for path, r in
+            dp["nccl_world1"]["replay_traced"].items()})
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -24,17 +24,27 @@ launch per kernel. ``ShapeGraphs`` owns the graphs of one callable:
   write each other's outputs. The caller's ``fresh`` turns the graph's
   static outputs into tensors that the next replay does not overwrite.
 * A replay adds to each kernel's ``.launches`` counter (``ops/kernels.py::
-  LAUNCH_COUNTERS``) what the capture counted, so N replays count what N
-  eager calls count; the capture's own counts are taken back.
+  LAUNCH_COUNTERS``) and to each kind of ``parallel/mesh.py::COLLECTIVES``
+  what the capture counted, so N replays count what N eager calls count;
+  the capture's own counts are taken back.
 * A call runs eagerly, and touches no graph, when any module of the model has
   a forward or backward hook (a graph cannot replay Python), when a global
   module hook is set, inside ``disable_graphs()``, or when it draws from a
   generator that this torch cannot register with a graph.
+* Over a process group (``mesh``) every rank must capture at the same call
+  and replay at the same calls, or the collectives inside the graphs do not
+  pair up. So there the key holds only what every rank shares (structure,
+  shapes, the caller's key, the optimizer's settings, the flags) and the
+  count of calls at it decides; the storage addresses, which one rank alone
+  may see change (an allocator hands back the freed address on one rank and
+  not on another), are checked instead, and a graph whose state moved
+  raises rather than replay stale pointers.
 
 Nothing catches a failed capture or replay: it raises. The entry points
-capture only on the card, with the kernels (not ``plain=True``) and without a
-process group (``wanted``); the CPU runs the eager path, which is also the
-reference that a graph is held against.
+capture only on the card, with the kernels (not ``plain=True``), and without
+a process group or over an NCCL one without a space axis (``wanted``); the
+CPU runs the eager path, which is also the reference that a graph is held
+against.
 """
 
 from __future__ import annotations
@@ -46,6 +56,8 @@ from collections import OrderedDict, namedtuple
 from typing import Callable, Iterable, Sequence
 
 import torch
+
+from radar_depth_tpu_torch.parallel.mesh import COLLECTIVES, is_distributed
 
 _DISABLED = [0]
 # the device types whose entry points capture; the CPU runs eagerly
@@ -66,9 +78,16 @@ def disable_graphs():
 
 def wanted(device: torch.device, plain: bool = False, mesh=None) -> bool:
     """Whether an entry point on ``device`` captures: on the card, with the
-    kernels, without a process group (its collectives stay eager)."""
-    return (torch.device(device).type in CAPTURE_DEVICES and not plain
-            and mesh is None)
+    kernels, and either without a process group or over an NCCL one without
+    a space axis (data, or replica x data), whose collectives run on the
+    card's streams and are captured with the step. A gloo group stays eager:
+    its collectives run on the host, which a graph cannot hold. A spatial
+    mesh stays eager too: its halo exchanges are held to the whole-image
+    forward only over gloo on one card, never inside a graph."""
+    if torch.device(device).type not in CAPTURE_DEVICES or plain:
+        return False
+    return not is_distributed(mesh) or (mesh.backend == "nccl"
+                                        and mesh.space_size == 1)
 
 
 def can_register_generators() -> bool:
@@ -184,9 +203,9 @@ def _global_hooks() -> bool:
         "_global_backward_hooks", "_global_backward_pre_hooks"))
 
 
-# a captured graph, its static inputs and outputs, and the launches per
-# kernel counter that one replay stands for
-_Graph = namedtuple("_Graph", "graph inputs outputs counts")
+# a captured graph, its static inputs and outputs, the launches per kernel
+# counter and the collectives per kind that one replay stands for
+_Graph = namedtuple("_Graph", "graph inputs outputs counts collectives")
 
 
 class ShapeGraphs:
@@ -195,23 +214,32 @@ class ShapeGraphs:
 
     ``fn(*args)`` takes trees (dicts, lists, tuples) of tensors and
     constants and returns a tree of tensors. ``model`` owns the state the
-    graphs read: its tensors' addresses are part of the key, and a hook on
-    any of its modules (the tree as it is when this is built) sends the
-    call to the eager path. ``fresh(outputs)`` maps a replay's static
-    outputs to what the caller returns. ``capture`` and ``counters`` are
+    graphs read: its tensors' addresses are part of the key (checked
+    against it over a process group), and a hook on any of its modules (the
+    tree as it is when this is built) sends the call to the eager path.
+    ``fresh(outputs)`` maps a replay's static outputs to what the caller
+    returns. ``lock`` is held over each call: a caller that reads more of a
+    replay's static outputs than ``fresh`` copies holds it across the call
+    and that read, so no other thread's replay rewrites them in between.
+    ``mesh``: the one whose collectives ``fn`` issues, if any (a
+    ``parallel.mesh.DataMesh``); with a process group the key is the ranks'
+    shared one (module docstring). ``capture`` and ``counters`` are
     ``CudaCapture()`` and ``kernel_counters`` unless given (a test's
     stand-ins)."""
 
     def __init__(self, fn: Callable, model: torch.nn.Module,
                  fresh: Callable = lambda out: out, max_graphs: int = 16,
-                 capture=None, counters: Callable[[], list] | None = None):
+                 mesh=None, capture=None,
+                 counters: Callable[[], list] | None = None):
         self.fn, self.fresh = fn, fresh
         self._modules = list(model.modules())  # the tree is fixed
         self.max_graphs = max_graphs
+        self.shared = is_distributed(mesh)
         self.capture = CudaCapture() if capture is None else capture
         self.counters = kernel_counters if counters is None else counters
-        self._graphs: OrderedDict = OrderedDict()  # key -> _Graph | None
-        self._lock = threading.Lock()  # one call at a time: static tensors
+        # key -> [addresses, _Graph or None before the capture]
+        self._graphs: OrderedDict = OrderedDict()
+        self.lock = threading.RLock()  # one call at a time: static tensors
         self.stats = {"eager": 0, "captures": 0, "replays": 0}
 
     def _scan(self, optimizer):
@@ -237,8 +265,10 @@ class ShapeGraphs:
         return tuple(ptrs), opt
 
     def _key(self, spec, leaves, key, state) -> tuple:
+        ptrs, opt = state
         return (spec, tuple((t.shape, t.dtype, t.device, t.stride())
-                            for t in leaves), key, _flags(), state)
+                            for t in leaves), key, _flags(), opt,
+                () if self.shared else ptrs)
 
     def __call__(self, *args, key: tuple = (), generators: Sequence = (),
                  optimizer: torch.optim.Optimizer | None = None):
@@ -246,17 +276,19 @@ class ShapeGraphs:
         caller's part of it; ``generators``: the ``torch.Generator`` objects
         ``fn`` draws from, registered with its graph; ``optimizer``: the one
         whose state ``fn`` updates (its tensors' addresses join the key)."""
-        with self._lock:
-            return self._call(args, key, generators, optimizer)
+        with self.lock:
+            out, replayed = self._call(args, key, generators, optimizer)
+            return self.fresh(out) if replayed else out
 
     def _call(self, args, key, generators, optimizer):
+        """(``fn(*args)``, False), or (a replay's static outputs, True)."""
         state = None
         if not (_DISABLED[0] or _global_hooks() or (
                 generators and not self.capture.supports_generators())):
             state = self._scan(optimizer)
         if state is None:  # eager
             self.stats["eager"] += 1
-            return self.fn(*args)
+            return self.fn(*args), False
         leaves: list = []
         spec = _flatten(args, leaves)
         k = self._key(spec, leaves, key, state)
@@ -264,34 +296,47 @@ class ShapeGraphs:
             out = self.fn(*args)
             self.stats["eager"] += 1
             # the key the next call sees: momentum buffers exist now
-            k = self._key(spec, leaves, key, self._scan(optimizer))
+            state = self._scan(optimizer)
+            k = self._key(spec, leaves, key, state)
             if k not in self._graphs:
-                self._graphs[k] = None
+                self._graphs[k] = [state[0], None]
                 while len(self._graphs) > self.max_graphs:
                     self._graphs.popitem(last=False)
-            return out
-        entry = self._graphs[k]
+            return out, False
+        ptrs, entry = self._graphs[k]
         self._graphs.move_to_end(k)
+        if ptrs != state[0]:  # only a shared key lacks the addresses
+            raise RuntimeError(
+                "a parameter, buffer or optimizer state that a graph over a "
+                "process group reads was replaced: the ranks cannot agree "
+                "to capture anew on an address that one rank alone may see "
+                "change, so build the step again after replacing its state")
         if entry is None:  # call 2: capture
             entry = self._capture(spec, leaves, generators)
-            self._graphs[k] = entry
+            self._graphs[k][1] = entry
         else:
             for static, t in zip(entry.inputs, leaves):
                 static.copy_(t)
         entry.graph.replay()
         for counter, n in zip(self.counters(), entry.counts):
             counter.launches += n
+        COLLECTIVES.update(entry.collectives)
         self.stats["replays"] += 1
-        return self.fresh(entry.outputs)
+        return entry.outputs, True
 
     def _capture(self, spec, leaves, generators) -> _Graph:
         inputs = [t.clone() for t in leaves]
         counters = self.counters()
         before = [c.launches for c in counters]
+        kinds = dict(COLLECTIVES)
         graph, outputs = self.capture(
             lambda: self.fn(*_unflatten(spec, iter(inputs))), generators)
         counts = [c.launches - n for c, n in zip(counters, before)]
         for c, n in zip(counters, before):
             c.launches = n
+        collectives = {k: n - kinds.get(k, 0) for k, n in COLLECTIVES.items()
+                       if n != kinds.get(k, 0)}
+        COLLECTIVES.clear()
+        COLLECTIVES.update(kinds)
         self.stats["captures"] += 1
-        return _Graph(graph, inputs, outputs, counts)
+        return _Graph(graph, inputs, outputs, counts, collectives)

@@ -18,11 +18,13 @@ kernel A with ``raster_backend="scatter"``) ->
 ``pred[..., 0]``. PyTorch launches asynchronously; the copy of the result to
 the host is the only wait.
 
-On the card (no mesh, not ``plain``) ``infer`` runs that path as one CUDA
-graph per tile shape (``graphs.py``, the counterpart of the JAX Predictor's
-one jitted program per shape): the first call at a shape runs eagerly, the
+On the card (no mesh, not ``plain``) ``infer`` and ``evaluate`` run that
+path as one CUDA graph per tile shape (``graphs.py``, the counterpart of
+the JAX Predictor's one jitted program per shape), and so does the
+artifact of ``load_serving``: the first call at a shape runs eagerly, the
 second captures, later ones replay. The eager path stays the path on the
-CPU, under a mesh, under a module hook and for ``plain=True``.
+CPU, under a mesh, under a module hook, inside ``graphs.disable_graphs()``
+and for ``plain=True``.
 
 Over ranks (``mesh``, ``Predictor.from_run`` with ``spatial`` > 1 under
 ``torchrun``): every rank calls ``predict`` with the same global batch and
@@ -109,7 +111,16 @@ def load_serving(path: str, device: str | torch.device | None = None):
     runs only on the kind of device it was exported on. The kernels'
     operators (``torch.ops.rdt.*``) are registered by this module's
     imports; their CUDA libraries are built at first use, as in eager
-    mode."""
+    mode.
+
+    On the card the exported module runs as one CUDA graph (``graphs.py``;
+    the artifact has one batch size, so one graph): the first call runs
+    eagerly, the second captures, later ones replay, the upload before the
+    graph. The callable's ``graphs`` is its ``graphs.ShapeGraphs`` (None on
+    the CPU). ``torch.export``'s own hooks on the loaded module, which check
+    its inputs in Python, are taken off: a graph cannot replay them (a
+    hooked module runs eagerly), and ``serve`` checks every input against
+    the artifact's record itself."""
     dev = resolve_device(device)
     use_deterministic_convs(dev)
     meta = _serving_meta(path)
@@ -118,7 +129,13 @@ def load_serving(path: str, device: str | torch.device | None = None):
             f"{path} was exported on {meta['device']!r} and runs only "
             f"there, not on {dev.type!r}: export it again on that device")
     module = torch.export.load(path).module()
+    for hooks in (module._forward_pre_hooks, module._forward_hooks,
+                  module._forward_hooks_always_called):
+        hooks.clear()
     inputs = meta["inputs"]
+    shapes = (graphs.ShapeGraphs(module, module, fresh=torch.Tensor.clone,
+                                 max_graphs=1)
+              if graphs.wanted(dev) else None)
 
     def serve(batch: Dict) -> np.ndarray:
         if set(batch) != set(inputs):
@@ -134,8 +151,11 @@ def load_serving(path: str, device: str | torch.device | None = None):
             tensors[k] = torch.from_numpy(
                 np.require(v, requirements="W")).to(dev)
         with torch.no_grad():
-            return module(tensors).cpu().numpy()
+            if shapes is None:
+                return module(tensors).cpu().numpy()
+            return shapes(tensors).cpu().numpy()
 
+    serve.graphs = shapes
     return serve
 
 
@@ -171,7 +191,8 @@ class Predictor:
     timed run computed (under a graph, copies of what its replay wrote).
 
     ``graphs`` (a ``graphs.ShapeGraphs``, or None where the path stays
-    eager) holds the captured forwards."""
+    eager: on the CPU, over a mesh, with ``plain``) holds the captured
+    forwards, one per tile shape, shared by ``infer`` and ``evaluate``."""
 
     def __init__(self, cfg: ServeConfig, state_dict: Mapping,
                  device: str | torch.device | None = None, plain: bool = False,
@@ -197,8 +218,8 @@ class Predictor:
                                      raster_backend=cfg.raster_backend)
         self.graphs = (graphs.ShapeGraphs(self._served_map, self.model,
                                           fresh=self._fresh)
-                       if graphs.wanted(self.device, plain, self.mesh)
-                       else None)
+                       if self.mesh is None
+                       and graphs.wanted(self.device, plain) else None)
 
     @classmethod
     def from_run(cls, run_dir: str, cfg: TrainConfig | None = None,
@@ -278,6 +299,16 @@ class Predictor:
         return gather_batch(unslab(pred, self.mesh, self.cfg.height, 1),
                             self.mesh)
 
+    @torch.inference_mode()
+    def _replay(self, batch: Dict):
+        """The tile shape's graph, the upload before any capture: the map
+        and the prepared batch (``_fresh``), ``keep`` filled."""
+        pred, prepared, out = self.graphs(to_device(batch, self.device),
+                                          key=(self.model.training,))
+        if self.keep is not None:
+            self.keep.update(prepared=prepared, out=out)
+        return pred, prepared
+
     def infer(self, batch: Dict) -> torch.Tensor:
         """One raw batch -> (B, H, W) float32 prediction on the device,
         without waiting for it. Over a mesh: the same global batch on every
@@ -286,24 +317,28 @@ class Predictor:
         docstring)."""
         if self.graphs is None:
             return self._infer_eager(batch)
-        with torch.inference_mode():  # the upload before any capture
-            pred, prepared, out = self.graphs(to_device(batch, self.device),
-                                              key=(self.model.training,))
-        if self.keep is not None:
-            self.keep.update(prepared=prepared, out=out)
-        return pred
+        return self._replay(batch)[0]
 
     def evaluate(self, batch: Dict) -> Dict[str, float]:
         """Raw schema batch -> the reference's Result-style metrics against
         the batch's LiDAR depth (``metric_avg`` convention). Over a mesh the
         batch is padded to a multiple of the data axis with samples that
-        carry no valid target."""
+        carry no valid target. On the card: through ``infer``'s graph of
+        the batch's shape."""
         if self.mesh is not None:
             b = len(next(iter(batch.values())))
             d = self.mesh.data_size
             batch = pad_batch_to({k: np.asarray(v) for k, v in batch.items()},
                                  -(-b // d) * d)[0]
-        pred, target = self._forward(batch)
+        if self.graphs is None:
+            pred, target = self._forward(batch)
+        else:
+            # the target copied before another caller's replay at this
+            # shape rewrites the graph's prepared batch
+            with self.graphs.lock, torch.inference_mode():
+                pred, prepared = self._replay(batch)
+                target = prepared["target"].clone()
+            pred = pred[..., None]
         return finalize_metrics(compute_metric_sums(
             pred, target, self.metric_avg, self.mesh))
 

@@ -229,14 +229,16 @@ def make_train_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
     add up and the loss is divided by N, so its scale matches the plain
     step.
 
-    On the card, with the kernels and without a process group, the step
-    (micro-batches, update and BN running statistics) runs as one CUDA
-    graph (``graphs.py``): the first step at a batch shape and learning
-    rate runs eagerly, the second captures, later ones replay; a new
-    learning rate (a setting of the optimizer's, set before the graph), or
-    an optimizer whose momentum buffers were replaced (``load_state_dict``),
-    captures anew. The step count and the learning
-    rate stay on the host. A step that draws from ``generator`` registers it
+    On the card, with the kernels, and without a process group or over an
+    NCCL one without a space axis (``graphs.wanted``), the step
+    (micro-batches, update, BN running statistics and the collectives) runs
+    as one CUDA graph (``graphs.py``): the first step at a batch shape and
+    learning rate runs eagerly, the second captures, later ones replay; a
+    new learning rate (a setting of the optimizer's, set before the graph),
+    or an optimizer whose momentum buffers were replaced
+    (``load_state_dict``), captures anew (over a process group it raises:
+    build the step again). The step count and the learning rate stay on
+    the host. A step that draws from ``generator`` registers it
     with its graph where this torch can (else it runs eagerly); the sums
     are new tensors every step.
 
@@ -286,7 +288,7 @@ def make_train_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
 
     dev = _device(model)
     shapes = (graphs.ShapeGraphs(update, model, fresh=_fresh_sums,
-                                 max_graphs=1)
+                                 max_graphs=1, mesh=mesh)
               if graphs.wanted(dev, plain, mesh) else None)
 
     def train_step(state: TrainState, batch: Dict,
@@ -327,22 +329,31 @@ def make_eval_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
     runs every kernel's plain version. ``mesh`` with a process group:
     ``batch`` is this rank's rows of a global batch (a ragged last one
     padded with ``parallel.mesh.pad_batch_to`` first) and the sums are the
-    global batch's; a sparsifier's draws are those of the global batch."""
+    global batch's; a sparsifier's draws are those of the global batch.
+
+    A sparsifier draws the same uniforms every call (a generator seeded 0,
+    the JAX package's fixed key), from one generator of the step's, seeded
+    again before each call. Where ``make_train_step`` captures, so does
+    this step: one CUDA graph per batch shape (a ragged last batch is a
+    second), the generator registered with it; the sums are new tensors
+    every call, so a caller may add them up across calls.
+    ``eval_step.graphs`` is the ``graphs.ShapeGraphs`` (None where the step
+    stays eager)."""
     pre = make_preprocess_config(cfg)
     mesh = mesh if is_distributed(mesh) else None
+    dev = _device(model)
+    fixed = (torch.Generator(device=dev) if pre.sparsifier != "none"
+             else None)
 
-    @torch.no_grad()
-    def eval_step(batch: Dict) -> Dict:
-        use_mesh(use_plain_kernels(model.eval(), plain), mesh)
-        dev = _device(model)
+    def sums_of(batch: Dict, generator) -> Dict:
+        """The step's device work."""
         sparse_u = None
-        if mesh is not None and pre.sparsifier != "none":
-            # the fixed draws of a single-process eval over the global batch
-            _, sparse_u = _global_draws(
-                batch, pre, mesh, dev, None,
-                torch.Generator(device=dev).manual_seed(0), None, False)
+        if mesh is not None and generator is not None:
+            _, sparse_u = _global_draws(batch, pre, mesh, dev, None,
+                                        generator, None, False)
         prepared = spatial_constraint(
-            prepare_eval_batch(batch, pre, dev, plain, sparse_u), mesh)
+            prepare_eval_batch(batch, pre, dev, plain, sparse_u, generator),
+            mesh)
         out = model(*pack_model_inputs(prepared, spec.input_kind,
                                        cfg.model.modality))
         loss, pred = _loss_and_pred(out, prepared["target"], cfg, spec,
@@ -352,6 +363,20 @@ def make_eval_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
         sums["loss"], = all_reduce_sum([loss.float()], mesh)
         return sums
 
+    shapes = (graphs.ShapeGraphs(sums_of, model, fresh=_fresh_sums,
+                                 mesh=mesh)
+              if graphs.wanted(dev, plain, mesh) else None)
+
+    @torch.no_grad()
+    def eval_step(batch: Dict) -> Dict:
+        use_mesh(use_plain_kernels(model.eval(), plain), mesh)
+        gen = None if fixed is None else fixed.manual_seed(0)
+        if shapes is None:
+            return sums_of(batch, gen)
+        return shapes(to_device(batch, dev), gen, key=(model.training,),
+                      generators=() if gen is None else (gen,))
+
+    eval_step.graphs = shapes
     return eval_step
 
 
@@ -360,16 +385,29 @@ def make_predict_fn(model: torch.nn.Module, spec: ArchSpec,
     """``predict(batch) -> {rgb, radar, target, pred}``, all (B, H, W, .)
     on the device: the eval preprocessing and the eval-mode forward, with the
     served output (``blend_tau``), for the comparison panels; in this
-    process alone, whatever mesh the model's steps use."""
+    process alone, whatever mesh the model's steps use. On the card it
+    captures as the eval step does (one graph per batch shape), its outputs
+    copies that the next call leaves as they are; ``predict.graphs``."""
     pre = make_preprocess_config(cfg)
+    dev = _device(model)
 
-    @torch.no_grad()
-    def predict(batch: Dict) -> Dict[str, torch.Tensor]:
-        prepared = prepare_eval_batch(batch, pre, _device(model))
-        out = use_mesh(model.eval(), None)(*pack_model_inputs(
-            prepared, spec.input_kind, cfg.model.modality))
+    def panels_of(batch: Dict) -> Dict[str, torch.Tensor]:
+        prepared = prepare_eval_batch(batch, pre, dev)
+        out = model(*pack_model_inputs(prepared, spec.input_kind,
+                                       cfg.model.modality))
         _, pred = _loss_and_pred(out, prepared["target"], cfg, spec,
                                  rgb=prepared["rgb"])
         return dict(prepared, pred=pred)
 
+    shapes = (graphs.ShapeGraphs(panels_of, model, fresh=graphs.clone_tree)
+              if graphs.wanted(dev) else None)
+
+    @torch.no_grad()
+    def predict(batch: Dict) -> Dict[str, torch.Tensor]:
+        use_mesh(model.eval(), None)
+        if shapes is None:
+            return panels_of(batch)
+        return shapes(to_device(batch, dev), key=(model.training,))
+
+    predict.graphs = shapes
     return predict

@@ -1,12 +1,11 @@
 """radar_depth_tpu_torch/graphs.py: the per-shape graphs of the served
-forward and the train step, on the CPU with a stand-in for the CUDA capture.
+forward and the train step, on the CPU with a stand-in for the CUDA capture
+(tests/torch_graph_capture.py).
 
-The stand-in records each capture; like a real capture it computes nothing
-that stays (the model and optimizer state it runs over is put back), and
-its replay runs the captured function again into the same output tensors.
-So the eager path (held to the JAX package by the other test files) and the
+The eager path (held to the JAX package by the other test files) and the
 graphed path must give the same bits on the CPU: the flagship at 64x96,
-B=2, float32. On the card, tests/test_torch_gpu.py and phase ``graphs`` of
+B=2, float32. tests/test_torch_graphs_eval.py holds the eval paths and the
+artifact, tests/test_torch_graphs_mesh.py the steps over a process group. On the card, tests/test_torch_gpu.py and phase ``graphs`` of
 chip_smoke.py hold the real graphs to the eager path.
 """
 
@@ -35,59 +34,14 @@ from radar_depth_tpu_torch.train.state import (
     state_to_dict,
 )
 from radar_depth_tpu_torch.train.step import make_train_step
+from tests.torch_graph_capture import (  # noqa: F401  (fixture)
+    Recorder,
+    capture_on_cpu,
+)
 
 H, W, SWEEPS, B = 64, 96, 2, 2
 ARCH = "resnet18_multistage"
 SPEC = SampleSpec(height=H, width=W, num_sweeps=SWEEPS)
-
-
-def _leaves(tree):
-    out = []
-    graphs._flatten(tree, out)
-    return out
-
-
-class Recorder:
-    """Stand-in for ``graphs.CudaCapture``: records each capture (the
-    number of generators registered), puts back the tensors of ``state()``
-    after running the function once, and replays it into the same output
-    tensors, the Python side effect on ``counters`` taken back as a real
-    replay runs no Python. ``fail=True`` raises at capture."""
-
-    def __init__(self, state=lambda: [], generators=True, fail=False,
-                 counters=()):
-        self.state, self.fail, self._generators = state, fail, generators
-        self.counters = counters
-        self.calls = []
-
-    def supports_generators(self):
-        return self._generators
-
-    def __call__(self, fn, generators=()):
-        self.calls.append(len(generators))
-        if self.fail:
-            raise RuntimeError("capture failed")
-        with torch.no_grad():
-            saved = [t.clone() for t in self.state()]
-        out = fn()
-        with torch.no_grad():
-            for t, s in zip(self.state(), saved):
-                t.copy_(s)
-        return Replay(fn, out, self.counters), out
-
-
-class Replay:
-    def __init__(self, fn, out, counters):
-        self.fn, self.out, self.counters = fn, out, counters
-
-    def replay(self):
-        before = [c.launches for c in self.counters]
-        new = self.fn()
-        for c, n in zip(self.counters, before):
-            c.launches = n
-        with torch.no_grad():
-            for static, t in zip(_leaves(self.out), _leaves(new)):
-                static.copy_(t)
 
 
 class Counter:
@@ -110,11 +64,6 @@ def _toy(capture=None, **kw):
                            capture=capture or Recorder(counters=[counter]),
                            counters=lambda: [counter], **kw)
     return g, model, counter, runs
-
-
-@pytest.fixture
-def capture_on_cpu(monkeypatch):
-    monkeypatch.setattr(graphs, "CAPTURE_DEVICES", ("cuda", "cpu"))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -250,9 +199,25 @@ def test_least_recently_used_graph_is_dropped():
 @pytest.mark.parametrize("case,want", [
     (dict(device="cpu"), False), (dict(device="cuda"), True),
     (dict(device="cuda", plain=True), False),
-    (dict(device="cuda", mesh=DataMesh(group=object())), False)])
-def test_wanted_only_on_the_card_with_kernels_and_no_process_group(case,
-                                                                   want):
+    (dict(device="cuda", mesh=DataMesh(group=object())), False),
+    (dict(device="cuda", mesh=DataMesh(group=object(), backend="gloo")),
+     False),
+    (dict(device="cuda", mesh=DataMesh(group=object(), backend="nccl")),
+     True),
+    (dict(device="cuda", mesh=DataMesh(group=object(), backend="nccl",
+                                       axis_names=("replica", "data"),
+                                       shape=(2, 2))), True),
+    (dict(device="cuda", mesh=DataMesh(group=object(), backend="nccl",
+                                       axis_names=("data", "space"),
+                                       shape=(1, 2), space_size=2)), False),
+    (dict(device="cuda", plain=True,
+          mesh=DataMesh(group=object(), backend="nccl")), False),
+    (dict(device="cuda", mesh=DataMesh()), True)])
+def test_wanted_on_the_card_with_kernels_without_a_group_or_over_nccl(
+        case, want):
+    """The card with the kernels captures without a process group (a mesh
+    without one is no group) and over an NCCL group without a space axis;
+    a gloo group, a spatial mesh, ``plain`` and the CPU run eagerly."""
     assert graphs.wanted(**case) == want
 
 
