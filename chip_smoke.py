@@ -192,8 +192,11 @@ Phases, each printing one JSON line:
                  (bfloat16, B=8, 3 epochs, 20 val samples held in host
                  memory: B=8, 8, 4) validating eagerly and on its graphs:
                  peak and reserved GiB of each run, validate walls, the
-                 graphs' captures; validate and validate_splits eager and
-                 graph in turns, metrics equal
+                 graphs' captures (the train step's once over the 3
+                 epochs: the Trainer reseeds one generator), the train and
+                 val metrics equal to a third run's, every step and
+                 validation under disable_graphs; validate and
+                 validate_splits eager and graph in turns, metrics equal
   profile_train  the same over one B=8 train step, float32 and bfloat16
   harness        the training harness at full width (flagship, bfloat16,
                  B=8, 450x800) on packed SyntheticNuScenes shards (48 train,
@@ -243,8 +246,10 @@ Phases, each printing one JSON line:
                  bit-equal to the same steps eager and without a group,
                  all-reduces per step under replay as eager, and three eval
                  steps bit-equal too, launches counted (kernel C 1 per
-                 step; 84 B + 1 C per eval step), the ms of the flat
-                 gradient all-reduce, img/s of the DP path (graph and
+                 step; 84 B + 1 C per eval step), the bfloat16 Predictor
+                 over the group on its graph, the replay's map bit-equal
+                 to the eager path's (84 B + 1 C a call), the ms of the
+                 flat gradient all-reduce, img/s of the DP path (graph and
                  eager) over the plain step's; (b) two processes on card 0 over
                  gloo (NCCL refuses two ranks on one device), 4 rows each
                  of B=8, one float32 train step against the 1-process B=8
@@ -3224,13 +3229,18 @@ def without_timing(metrics):
 
 def eval_trainer_runs(torch, np, dev, smi):
     """The Trainer (flagship, bf16, B=8, 450x800, synthetic samples held in
-    host memory) for EVAL_RUN_EPOCHS epochs of training and validation
-    (20 samples: B=8, 8 and a ragged 4; a panel row per val batch), twice:
-    ``before`` validates eagerly (``disable_graphs`` around ``validate``,
-    the parent's path), ``after`` on the eval and panel graphs. Per run:
-    peak GiB allocated over the run (less what was allocated before it),
-    GiB reserved at its end (the graphs' pools held), validate walls per
-    epoch and the graphs' stats. Then, on the ``after`` Trainer,
+    host memory, so the augmentation runs in the step and draws from the
+    Trainer's generator) for EVAL_RUN_EPOCHS epochs of training and
+    validation (20 samples: B=8, 8 and a ragged 4; a panel row per val
+    batch), three times: ``before`` validates eagerly (``disable_graphs``
+    around ``validate``, the parent's path), ``after`` on the eval and
+    panel graphs, ``eager`` runs every step and validation under
+    ``disable_graphs``. Per run: peak GiB allocated over the run (less what
+    was allocated before it), GiB reserved at its end (the graphs' pools
+    held), validate walls per epoch, the train and val metrics of every
+    epoch and the graphs' stats. The graphed runs capture their train step
+    once over the three epochs (one generator, reseeded each epoch), and
+    ``after``'s metrics equal ``eager``'s. Then, on the ``after`` Trainer,
     EVAL_RUN_TURNS rounds of ``validate`` eager and graph in turns, and
     ``validate_splits`` of each: metrics equal, walls."""
     import gc
@@ -3248,7 +3258,7 @@ def eval_trainer_runs(torch, np, dev, smi):
     out = {"nvidia_smi": smi, "epochs": EVAL_RUN_EPOCHS,
            "val_samples": EVAL_RUN_VAL, "eval_batch": B_TRAIN}
     try:
-        for mode in ("before", "after"):
+        for mode in ("before", "after", "eager"):
             gc.collect()
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -3261,12 +3271,15 @@ def eval_trainer_runs(torch, np, dev, smi):
                 held = (HeldDataset(np, trainer.train_ds),
                         HeldDataset(np, trainer.val_ds))
             trainer.train_ds, trainer.val_ds = held
-            walls, metrics = [], []
+            walls, metrics, train_metrics = [], [], []
             try:
                 for epoch in range(EVAL_RUN_EPOCHS):
-                    trainer.train_epoch(epoch)
-                    with graph_or_eager("eager" if mode == "before"
+                    with graph_or_eager("eager" if mode == "eager"
                                         else "graph"):
+                        train_metrics.append(without_timing(
+                            trainer.train_epoch(epoch)))
+                    with graph_or_eager("graph" if mode == "after"
+                                        else "eager"):
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
                         metrics.append(trainer.validate(epoch))
@@ -3277,6 +3290,7 @@ def eval_trainer_runs(torch, np, dev, smi):
                      "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30
                      - base_reserved,
                      "validate_s": walls,
+                     "train_metrics": train_metrics,
                      "val_metrics": [without_timing(m) for m in metrics],
                      "eval_graphs": dict(trainer._eval_step.graphs.stats),
                      "eval_keys": len(trainer._eval_step.graphs._graphs),
@@ -3292,10 +3306,20 @@ def eval_trainer_runs(torch, np, dev, smi):
         shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    after = out["after"]
+    after, eager = out["after"], out["eager"]
+    once = {"eager": 1, "captures": 1,
+            "replays": EVAL_RUN_EPOCHS * EVAL_RUN_TRAIN // B_TRAIN - 1}
+    out["train_step_captured_once"] = all(
+        out[m]["train_graphs"] == once for m in ("before", "after"))
+    out["metrics_equal_to_eager_run"] = (
+        after["train_metrics"] == eager["train_metrics"]
+        and after["val_metrics"] == eager["val_metrics"])
     if (after["eval_graphs"]["captures"] != 2 or after["eval_keys"] != 2
             or after["panel_graphs"]["captures"] != 1
-            or out["before"]["eval_graphs"]["captures"]):
+            or out["before"]["eval_graphs"]["captures"]
+            or eager["train_graphs"]["captures"]
+            or not out["train_step_captured_once"]
+            or not out["metrics_equal_to_eager_run"]):
         raise AssertionError(f"eval, the Trainer's graphs: {out}")
     return out
 
@@ -4845,6 +4869,42 @@ def dp_replay_trace(torch, graphed, fn, want, per_call, what):
     return out
 
 
+def dp_predictor(torch, np, sd, batch, mesh):
+    """The bfloat16 flagship ``Predictor`` over ``mesh``: three ``predict``
+    calls of ``batch`` (eager, captured, replayed) and one under
+    ``disable_graphs``, each counted: the maps bit-equal, 84 B + 1 C a
+    call, the graph's stats."""
+    from radar_depth_tpu_torch import graphs
+    from radar_depth_tpu_torch.config import serve_config
+    from radar_depth_tpu_torch.inference import Predictor
+
+    pred = Predictor(serve_config(train_config("bfloat16")), sd, mesh=mesh)
+    maps, launches = [], []
+    try:
+        for mode in ("graph",) * 3 + ("eager",):
+            with graph_or_eager(mode):
+                reset_launches()
+                maps.append(pred.predict(batch))
+                launches.append(read_launches())
+        stats = dict(pred.graphs.stats)
+    finally:
+        pred.close()  # its graphs hold the group's communicators
+    out = {"graph_stats": stats,
+           "replay_bit_equal_to_eager": bool(np.array_equal(maps[2],
+                                                            maps[3])),
+           "calls_bit_equal": all(np.array_equal(m, maps[3])
+                                  for m in maps[:3]),
+           "launches_per_call": launches[2]}
+    want = {KERNELS["A"]: 0, KERNELS["B"]: EPILOGUE_SITES_PER_FORWARD,
+            KERNELS["C"]: 1}
+    if (out["graph_stats"] != {"eager": 2, "captures": 1, "replays": 2}
+            or not out["calls_bit_equal"] or any(n != want for n in launches)
+            or not np.isfinite(maps[3]).all()):
+        raise AssertionError(f"data_parallel, Predictor over the 1-rank "
+                             f"group: {out}, launches {launches}")
+    return out
+
+
 def states_equal(torch, a, b) -> bool:
     sa, sb = a.state_dict(), b.state_dict()
     return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k])
@@ -4965,6 +5025,7 @@ def phase_data_parallel(torch, np, dev, batch, tmp):
                 torch, got_ev["step"].graphs, lambda: got_ev["step"](b8),
                 expect, eager_ev["collectives"][-1], "eval step")
             a["replay_traced"] = traced
+            a["predictor"] = dp_predictor(torch, np, sd, b8, mesh)
             a["eval"] = {"launches": ev_launches, "bit_equal": True,
                          "collectives": got_ev["collectives"][-1],
                          "graph_stats": got_ev["stats"]}

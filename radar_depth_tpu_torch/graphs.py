@@ -24,9 +24,13 @@ launch per kernel. ``ShapeGraphs`` owns the graphs of one callable:
   write each other's outputs. The caller's ``fresh`` turns the graph's
   static outputs into tensors that the next replay does not overwrite.
 * A replay adds to each kernel's ``.launches`` counter (``ops/kernels.py::
-  LAUNCH_COUNTERS``) and to each kind of ``parallel/mesh.py::COLLECTIVES``
-  what the capture counted, so N replays count what N eager calls count;
-  the capture's own counts are taken back.
+  LAUNCH_COUNTERS``), to each kind of ``parallel/mesh.py::COLLECTIVES``
+  (the halo exchanges' ``halo`` and ``halo_grad`` among them) and to
+  ``parallel/spatial.py::HALO["bytes"]`` what the capture counted, so N
+  replays count what N eager calls count; the capture's own counts are
+  taken back, and so are the host seconds that its exchanges added to
+  ``HALO["seconds"]`` (nothing moved then): those seconds come from eager
+  calls only.
 * A call runs eagerly, and touches no graph, when any module of the model has
   a forward or backward hook (a graph cannot replay Python), when a global
   module hook is set, inside ``disable_graphs()``, or when it draws from a
@@ -42,9 +46,9 @@ launch per kernel. ``ShapeGraphs`` owns the graphs of one callable:
 
 Nothing catches a failed capture or replay: it raises. The entry points
 capture only on the card, with the kernels (not ``plain=True``), and without
-a process group or over an NCCL one without a space axis (``wanted``); the
-CPU runs the eager path, which is also the reference that a graph is held
-against.
+a process group or over an NCCL one, with or without a space axis
+(``wanted``); the CPU and a gloo group run the eager path, which is also the
+reference that a graph is held against.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from typing import Callable, Iterable, Sequence
 import torch
 
 from radar_depth_tpu_torch.parallel.mesh import COLLECTIVES, is_distributed
+from radar_depth_tpu_torch.parallel.spatial import HALO
 
 _DISABLED = [0]
 # the device types whose entry points capture; the CPU runs eagerly
@@ -78,16 +83,16 @@ def disable_graphs():
 
 def wanted(device: torch.device, plain: bool = False, mesh=None) -> bool:
     """Whether an entry point on ``device`` captures: on the card, with the
-    kernels, and either without a process group or over an NCCL one without
-    a space axis (data, or replica x data), whose collectives run on the
-    card's streams and are captured with the step. A gloo group stays eager:
-    its collectives run on the host, which a graph cannot hold. A spatial
-    mesh stays eager too: its halo exchanges are held to the whole-image
-    forward only over gloo on one card, never inside a graph."""
+    kernels, and either without a process group or over an NCCL one (data,
+    replica x data, or data x space), whose collectives (the gradient and
+    statistics all-reduces, a spatial mesh's halo exchanges and gathers) run
+    on the card's streams and are captured with the step. Each of the
+    mesh's communicators is made by the eager first call at a key, before
+    any capture. A gloo group stays eager: its collectives run on the host,
+    which a graph cannot hold."""
     if torch.device(device).type not in CAPTURE_DEVICES or plain:
         return False
-    return not is_distributed(mesh) or (mesh.backend == "nccl"
-                                        and mesh.space_size == 1)
+    return not is_distributed(mesh) or mesh.backend == "nccl"
 
 
 def can_register_generators() -> bool:
@@ -204,8 +209,10 @@ def _global_hooks() -> bool:
 
 
 # a captured graph, its static inputs and outputs, the launches per kernel
-# counter and the collectives per kind that one replay stands for
-_Graph = namedtuple("_Graph", "graph inputs outputs counts collectives")
+# counter, the collectives per kind and the halo bytes that one replay
+# stands for
+_Graph = namedtuple("_Graph",
+                    "graph inputs outputs counts collectives halo_bytes")
 
 
 class ShapeGraphs:
@@ -241,6 +248,18 @@ class ShapeGraphs:
         self._graphs: OrderedDict = OrderedDict()
         self.lock = threading.RLock()  # one call at a time: static tensors
         self.stats = {"eager": 0, "captures": 0, "replays": 0}
+
+    def release(self) -> None:
+        """Drop every graph and its memory pool, and wait for the card. A
+        graph that captured a process group's collectives holds the
+        group's communicators: release it before the group is destroyed,
+        or ``destroy_process_group`` waits on them (the ranks of a run on
+        four cards hung at exit so). The next call at a key runs eagerly
+        again."""
+        with self.lock:
+            self._graphs.clear()
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
 
     def _scan(self, optimizer):
         """One pass over the model's modules: None if one has a hook, else
@@ -321,6 +340,7 @@ class ShapeGraphs:
         for counter, n in zip(self.counters(), entry.counts):
             counter.launches += n
         COLLECTIVES.update(entry.collectives)
+        HALO["bytes"] += entry.halo_bytes
         self.stats["replays"] += 1
         return entry.outputs, True
 
@@ -328,7 +348,7 @@ class ShapeGraphs:
         inputs = [t.clone() for t in leaves]
         counters = self.counters()
         before = [c.launches for c in counters]
-        kinds = dict(COLLECTIVES)
+        kinds, halo = dict(COLLECTIVES), dict(HALO)
         graph, outputs = self.capture(
             lambda: self.fn(*_unflatten(spec, iter(inputs))), generators)
         counts = [c.launches - n for c, n in zip(counters, before)]
@@ -338,5 +358,9 @@ class ShapeGraphs:
                        if n != kinds.get(k, 0)}
         COLLECTIVES.clear()
         COLLECTIVES.update(kinds)
+        halo_bytes = HALO["bytes"] - halo.get("bytes", 0)
+        HALO.clear()
+        HALO.update(halo)
         self.stats["captures"] += 1
-        return _Graph(graph, inputs, outputs, counts, collectives)
+        return _Graph(graph, inputs, outputs, counts, collectives,
+                      halo_bytes)

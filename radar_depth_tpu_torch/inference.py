@@ -18,19 +18,21 @@ kernel A with ``raster_backend="scatter"``) ->
 ``pred[..., 0]``. PyTorch launches asynchronously; the copy of the result to
 the host is the only wait.
 
-On the card (no mesh, not ``plain``) ``infer`` and ``evaluate`` run that
-path as one CUDA graph per tile shape (``graphs.py``, the counterpart of
-the JAX Predictor's one jitted program per shape), and so does the
-artifact of ``load_serving``: the first call at a shape runs eagerly, the
-second captures, later ones replay. The eager path stays the path on the
-CPU, under a mesh, under a module hook, inside ``graphs.disable_graphs()``
-and for ``plain=True``.
+On the card (not ``plain``; without a mesh or over an NCCL one) ``infer``
+and ``evaluate`` run that path as one CUDA graph per tile shape
+(``graphs.py``, the counterpart of the JAX Predictor's one jitted program
+per shape), and so does the artifact of ``load_serving``: the first call at
+a shape runs eagerly, the second captures, later ones replay. The eager path
+stays the path on the CPU, over a gloo group, under a module hook, inside
+``graphs.disable_graphs()`` and for ``plain=True``.
 
 Over ranks (``mesh``, ``Predictor.from_run`` with ``spatial`` > 1 under
 ``torchrun``): every rank calls ``predict`` with the same global batch and
 gets the whole (B, H, W) map. Each rank prepares its data-axis rows at
 full height, runs its slab of image rows (``parallel/spatial.py``), and
-the slabs and rows are put together again (``unslab``, ``gather_batch``).
+the slabs and rows are put together again (``unslab``, ``gather_batch``),
+inside the graph on the card: every rank captures at the same call and
+replays at the same calls, since each calls with the same batches.
 """
 
 
@@ -191,8 +193,9 @@ class Predictor:
     timed run computed (under a graph, copies of what its replay wrote).
 
     ``graphs`` (a ``graphs.ShapeGraphs``, or None where the path stays
-    eager: on the CPU, over a mesh, with ``plain``) holds the captured
-    forwards, one per tile shape, shared by ``infer`` and ``evaluate``."""
+    eager: on the CPU, over a gloo group, with ``plain``) holds the
+    captured forwards, one per tile shape, shared by ``infer`` and
+    ``evaluate``; over a mesh its key is the ranks' shared one."""
 
     def __init__(self, cfg: ServeConfig, state_dict: Mapping,
                  device: str | torch.device | None = None, plain: bool = False,
@@ -217,9 +220,9 @@ class Predictor:
                                      height_extension=cfg.height_extension,
                                      raster_backend=cfg.raster_backend)
         self.graphs = (graphs.ShapeGraphs(self._served_map, self.model,
-                                          fresh=self._fresh)
-                       if self.mesh is None
-                       and graphs.wanted(self.device, plain) else None)
+                                          fresh=self._fresh, mesh=self.mesh)
+                       if graphs.wanted(self.device, plain, self.mesh)
+                       else None)
 
     @classmethod
     def from_run(cls, run_dir: str, cfg: TrainConfig | None = None,
@@ -251,7 +254,12 @@ class Predictor:
         return out
 
     def close(self) -> None:
-        """Destroy the process group of a mesh that ``from_run`` made."""
+        """Release the graphs (``graphs.ShapeGraphs.release``: over a mesh
+        they hold its communicators), then destroy the process group of a
+        mesh that ``from_run`` made. A caller that passed its own mesh
+        closes the Predictor before destroying that mesh."""
+        if self.graphs is not None:
+            self.graphs.release()
         destroy_mesh(self._own_mesh)
         self._own_mesh = None
 
@@ -270,18 +278,27 @@ class Predictor:
         return pred, prepared, out
 
     def _served_map(self, batch: Dict):
+        """(the whole (B, H, W) map, this rank's rows (and slab) of it, the
+        prepared batch, the model's output): without a mesh the map and
+        the rank's share are one tensor."""
         pred, prepared, out = self._served(batch)
-        return pred[..., 0], prepared, out
+        local = pred[..., 0]
+        if self.mesh is None:
+            return local, local, prepared, out
+        full = gather_batch(unslab(local, self.mesh, self.cfg.height, 1),
+                            self.mesh)
+        return full, local, prepared, out
 
     def _fresh(self, out):
         """What a replay's caller gets: the map, and with ``keep`` the
         prepared batch and the model's output, as copies (the next replay at
         the tile's shape, for another caller's batch, writes the graph's
-        own)."""
-        pred, prepared, model_out = out
+        own). The rank's share of the map and the prepared batch stay the
+        graph's, for a caller that holds ``graphs.lock``."""
+        full, local, prepared, model_out = out
         if self.keep is None:
-            return pred.clone(), prepared, model_out
-        return (pred.clone(), graphs.clone_tree(prepared),
+            return full.clone(), local, prepared, model_out
+        return (full.clone(), local, graphs.clone_tree(prepared),
                 graphs.clone_tree(model_out))
 
     @torch.inference_mode()
@@ -292,22 +309,23 @@ class Predictor:
             self.keep.update(prepared=prepared, out=out)
         return pred, prepared["target"]
 
+    @torch.inference_mode()
     def _infer_eager(self, batch: Dict) -> torch.Tensor:
-        pred = self._forward(batch)[0][..., 0]
-        if self.mesh is None:
-            return pred
-        return gather_batch(unslab(pred, self.mesh, self.cfg.height, 1),
-                            self.mesh)
+        full, _, prepared, out = self._served_map(batch)
+        if self.keep is not None:
+            self.keep.update(prepared=prepared, out=out)
+        return full
 
     @torch.inference_mode()
     def _replay(self, batch: Dict):
-        """The tile shape's graph, the upload before any capture: the map
-        and the prepared batch (``_fresh``), ``keep`` filled."""
-        pred, prepared, out = self.graphs(to_device(batch, self.device),
-                                          key=(self.model.training,))
+        """The tile shape's graph, the upload before any capture: the whole
+        map, the rank's share of it and the prepared batch (``_fresh``),
+        ``keep`` filled."""
+        full, local, prepared, out = self.graphs(
+            to_device(batch, self.device), key=(self.model.training,))
         if self.keep is not None:
             self.keep.update(prepared=prepared, out=out)
-        return pred, prepared
+        return full, local, prepared
 
     def infer(self, batch: Dict) -> torch.Tensor:
         """One raw batch -> (B, H, W) float32 prediction on the device,
@@ -333,11 +351,13 @@ class Predictor:
         if self.graphs is None:
             pred, target = self._forward(batch)
         else:
-            # the target copied before another caller's replay at this
-            # shape rewrites the graph's prepared batch
+            # the target (and over a mesh the rank's share of the map)
+            # copied before another caller's replay at this shape rewrites
+            # the graph's own
             with self.graphs.lock, torch.inference_mode():
-                pred, prepared = self._replay(batch)
+                full, local, prepared = self._replay(batch)
                 target = prepared["target"].clone()
+                pred = (full if self.mesh is None else local.clone())
             pred = pred[..., None]
         return finalize_metrics(compute_metric_sums(
             pred, target, self.metric_avg, self.mesh))

@@ -117,7 +117,8 @@ def make_mesh(platform: str = "default", *, backend: Optional[str] = None,
     world-1 mesh with no group on ``cuda:LOCAL_RANK`` (the card; it raises
     without one) or, with ``platform="cpu"``, the CPU. With them: the
     default process group over NCCL on ``cuda:LOCAL_RANK``
-    (``torch.cuda.set_device`` first) or over gloo on the CPU, initialised
+    (``torch.cuda.set_device`` first; a ``LOCAL_RANK`` past the visible
+    cards raises) or over gloo on the CPU, initialised
     from the environment unless it exists already; a world of 1 makes a
     group too, so its collectives run.
 
@@ -139,6 +140,11 @@ def make_mesh(platform: str = "default", *, backend: Optional[str] = None,
     if dev.type == "cuda":
         if dev.index is None:
             dev = torch.device("cuda", local)
+        if dev.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"rank {env.get('RANK')} (LOCAL_RANK {local}) has no card "
+                f"of its own: {dev} of {torch.cuda.device_count()} visible; "
+                "start one rank per card")
         torch.cuda.set_device(dev)
     created = not dist.is_initialized()
     if created:

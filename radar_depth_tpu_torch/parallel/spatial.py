@@ -28,6 +28,13 @@ the halo). Only ``all_reduce`` is used, which gloo carries for CUDA tensors
 as well as NCCL. Exchanges count in ``parallel.mesh.COLLECTIVES`` under
 ``halo`` (forward) and ``halo_grad`` (backward); ``HALO`` adds their bytes
 and host seconds.
+
+Inside a CUDA graph (``graphs.py``, over an NCCL mesh) the exchanges are
+captured with the step or forward, and this Python runs only at the
+capture: a replay adds the capture's exchanges and bytes to ``COLLECTIVES``
+and ``HALO["bytes"]``, so a replay counts what an eager call counts, and
+adds no host seconds, which are those of eager calls alone (a replay's
+exchange time is read from device events, as a trace shows it).
 """
 
 from __future__ import annotations

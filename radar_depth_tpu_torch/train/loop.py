@@ -29,8 +29,11 @@ at the sync points as (window wall - window host time) / steps, since the
 device runs the steps of a window back to back.
 
 Randomness: the weights come from a generator seeded with ``cfg.seed``; the
-in-graph augmentation of epoch e draws from a ``torch.Generator`` seeded
-from (``cfg.seed``, e), and the native loader of epoch e is a new loader
+in-graph augmentation of epoch e draws from the Trainer's one
+``torch.Generator``, seeded again from (``cfg.seed``, e) at the start of
+the epoch (one object, so the train step's CUDA graph, which registers it,
+is captured once a run, as the JAX step is compiled once with the epoch in
+its key argument), and the native loader of epoch e is a new loader
 seeded ``cfg.seed + G*e`` (G the loader's golden-ratio constant), which
 shuffles as the JAX package's one loader does in its epoch e. So a run
 resumed at an epoch boundary draws what the uninterrupted run drew. The
@@ -290,6 +293,8 @@ class Trainer:
         self._eval_step = make_eval_step(self.model, self.arch_spec, cfg,
                                          mesh=self.mesh)
         self._predict = make_predict_fn(self.model, self.arch_spec, cfg)
+        # the step's one generator, reseeded each epoch (_epoch_generator)
+        self._generator = torch.Generator(device=self.device)
         self._loaders: Dict[int, object] = {}
 
         self._run_lock = None
@@ -460,8 +465,11 @@ class Trainer:
             self.device, non_blocking=True) for k, v in batch.items()}
 
     def _epoch_generator(self, epoch: int) -> torch.Generator:
+        """The Trainer's one generator, seeded for ``epoch``: it draws what
+        a new generator with that seed would, and stays the same object,
+        so the train step's graph key does not change with the epoch."""
         seed = (self.cfg.seed * 1_000_003 + epoch) & ((1 << 63) - 1)
-        return torch.Generator(device=self.device).manual_seed(seed)
+        return self._generator.manual_seed(seed)
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """Steps launch asynchronously; the metric sums add up on the
@@ -664,4 +672,10 @@ class Trainer:
             release_run_lock(self._run_lock)
             self._run_lock = None
         if getattr(self, "mesh", None) is not None:
+            # graphs that captured the group's collectives go first
+            # (graphs.ShapeGraphs.release)
+            for fn in ("_train_step", "_eval_step", "_predict"):
+                shapes = getattr(getattr(self, fn, None), "graphs", None)
+                if shapes is not None:
+                    shapes.release()
             destroy_mesh(self.mesh)

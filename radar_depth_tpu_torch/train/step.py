@@ -230,17 +230,22 @@ def make_train_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
     step.
 
     On the card, with the kernels, and without a process group or over an
-    NCCL one without a space axis (``graphs.wanted``), the step
-    (micro-batches, update, BN running statistics and the collectives) runs
-    as one CUDA graph (``graphs.py``): the first step at a batch shape and
+    NCCL one, a spatial one included (``graphs.wanted``), the step
+    (micro-batches, update, BN running statistics, the collectives and the
+    halo exchanges) runs as one CUDA graph (``graphs.py``): the first step
+    at a batch shape and
     learning rate runs eagerly, the second captures, later ones replay; a
     new learning rate (a setting of the optimizer's, set before the graph),
     or an optimizer whose momentum buffers were replaced
     (``load_state_dict``), captures anew (over a process group it raises:
     build the step again). The step count and the learning rate stay on
     the host. A step that draws from ``generator`` registers it
-    with its graph where this torch can (else it runs eagerly); the sums
-    are new tensors every step.
+    with its graph where this torch can (else it runs eagerly); the
+    generator is part of the graph's key, so a caller keeps one generator
+    and seeds it again (``manual_seed``) rather than making a new one,
+    which would capture anew (the Trainer reseeds one generator every
+    epoch); a generator of a device that does not capture (the CPU's) runs
+    the step eagerly. The sums are new tensors every step.
 
     ``mesh`` with a process group (module docstring): ``batch`` holds this
     rank's rows (dim 1 of the stacks), ``aug_params`` and ``sparse_u`` if
@@ -301,8 +306,9 @@ def make_train_step(model: torch.nn.Module, spec: ArchSpec, cfg: TrainConfig,
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         draws = _draws(pre, host_augmented, aug_params, sparse_u)
-        if shapes is None or (draws and (generator is None
-                                         or generator.device.type != "cuda")):
+        if shapes is None or (draws and (
+                generator is None
+                or generator.device.type not in graphs.CAPTURE_DEVICES)):
             sums = update(state.optimizer, batch, generator, aug_params,
                           sparse_u)
         else:

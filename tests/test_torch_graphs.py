@@ -209,6 +209,9 @@ def test_least_recently_used_graph_is_dropped():
                                        shape=(2, 2))), True),
     (dict(device="cuda", mesh=DataMesh(group=object(), backend="nccl",
                                        axis_names=("data", "space"),
+                                       shape=(1, 2), space_size=2)), True),
+    (dict(device="cuda", mesh=DataMesh(group=object(), backend="gloo",
+                                       axis_names=("data", "space"),
                                        shape=(1, 2), space_size=2)), False),
     (dict(device="cuda", plain=True,
           mesh=DataMesh(group=object(), backend="nccl")), False),
@@ -216,8 +219,9 @@ def test_least_recently_used_graph_is_dropped():
 def test_wanted_on_the_card_with_kernels_without_a_group_or_over_nccl(
         case, want):
     """The card with the kernels captures without a process group (a mesh
-    without one is no group) and over an NCCL group without a space axis;
-    a gloo group, a spatial mesh, ``plain`` and the CPU run eagerly."""
+    without one is no group) and over an NCCL group, with or without a
+    space axis; a gloo group (spatial or not), ``plain`` and the CPU run
+    eagerly."""
     assert graphs.wanted(**case) == want
 
 
@@ -357,7 +361,8 @@ def test_optimizer_load_state_dict_captures_anew(capture_on_cpu):
     assert len(step.graphs._graphs) == 1  # the train step keeps one graph
 
 
-def test_train_step_eager_under_a_mesh_and_a_cpu_generator(capture_on_cpu):
+def test_train_step_eager_under_a_mesh_and_a_cpu_generator(capture_on_cpu,
+                                                           monkeypatch):
     cfg = _train_cfg()
     model, arch_spec = create_model(ARCH, device="cpu", output_size=(H, W))
     assert make_train_step(model, arch_spec, cfg,
@@ -367,6 +372,8 @@ def test_train_step_eager_under_a_mesh_and_a_cpu_generator(capture_on_cpu):
     state = create_train_state(model, cfg.optim, 10)
     step = make_train_step(model, arch_spec, cfg)  # augments in the step
     step.graphs.capture = Recorder()
+    # the step was built to capture; the CPU's generator is no card's
+    monkeypatch.setattr(graphs, "CAPTURE_DEVICES", ("cuda",))
     gen = torch.Generator().manual_seed(0)
     for _ in range(2):
         step(state, _batch(0), generator=gen)

@@ -5,8 +5,8 @@ The stand-in records each capture; like a real capture it computes nothing
 that stays (the model and optimizer state it runs over, and the generators'
 states, are put back), and its replay runs the captured function again into
 the same output tensors, taking back what that run adds in Python to the
-kernels' launch counters and to ``parallel/mesh.py::COLLECTIVES``, since a
-real replay runs no Python. So the eager path and the graphed path must
+kernels' launch counters, to ``parallel/mesh.py::COLLECTIVES`` and to
+``parallel/spatial.py::HALO``, since a real replay runs no Python. So the eager path and the graphed path must
 give the same bits on the CPU.
 """
 
@@ -15,6 +15,7 @@ import torch
 
 from radar_depth_tpu_torch import graphs
 from radar_depth_tpu_torch.parallel.mesh import COLLECTIVES
+from radar_depth_tpu_torch.parallel.spatial import HALO
 
 
 def leaves(tree):
@@ -65,12 +66,13 @@ class Replay:
 
     def replay(self):
         before = [c.launches for c in self.counters]
-        collectives = dict(COLLECTIVES)
+        collectives, halo = dict(COLLECTIVES), dict(HALO)
         new = self.fn()
         for c, n in zip(self.counters, before):
             c.launches = n
-        COLLECTIVES.clear()
-        COLLECTIVES.update(collectives)
+        for counter, saved in ((COLLECTIVES, collectives), (HALO, halo)):
+            counter.clear()
+            counter.update(saved)
         with torch.no_grad():
             for static, t in zip(leaves(self.out), leaves(new)):
                 static.copy_(t)
